@@ -1,7 +1,7 @@
 """Quantize Gemma-3-270M with RTN int8 group-128, lm_head ignored.
 
-Mirror of the reference example (``/root/reference/examples/gemma3/gemma3_rtn.py:47-59``)
-on the TPU stack: instead of exporting ONNX via onnxruntime-genai and rewriting
+Mirror of the reference example (``examples/gemma3/gemma3_rtn.py:47-59``)
+on the JAX stack: instead of exporting ONNX via onnxruntime-genai and rewriting
 the graph, we load (or randomly initialize) the JAX Gemma-3 params, run
 ``quantize()``, and save a framework checkpoint the engine can serve.
 

@@ -5,9 +5,7 @@ build the engine, and stream a mixed workload — heterogeneous prompts,
 budgets, temperatures, and EOS ids — through the chunked scheduler. With
 ``chunk > 1`` every scheduler round is ONE compiled device program
 (``engine.serve_chunk``): admission prefill, per-slot sampling, and ``chunk``
-decode steps, returning a single packed result blob (BENCH.md round 5:
-18,846 generated tok/s under random load on one v5e chip at chunk=16,
-pipeline=48, narrow admission).
+decode steps, returning a single packed result blob.
 
 Usage:
     python examples/serving.py [--chunk 16] [--requests 32] [--tiny]
@@ -67,8 +65,7 @@ def main():
                         "(hides the host round-trip behind device compute; "
                         "admissions are planned from budgets so freed slots "
                         "refill mid-group, and the group's results come back "
-                        "in one stacked fetch — chunk=16/pipeline=48 is the "
-                        "measured best serving config, BENCH.md round 5)")
+                        "in one stacked fetch)")
     parser.add_argument("--requests", type=int, default=32)
     parser.add_argument("--slots", type=int, default=8)
     parser.add_argument("--max-seq", type=int, default=256)

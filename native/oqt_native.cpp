@@ -1,7 +1,7 @@
 // Native host-side kernels for onnx_quantize_tpu.
 //
 // The reference delegates its native compute to ONNX Runtime's C++ kernels
-// (SURVEY.md §2B); on the TPU build the *device* compute path is XLA/Pallas,
+// (SURVEY.md §2B); on this build the *device* compute path is XLA/Pallas,
 // and this library covers the host-side runtime work that would otherwise be
 // slow Python/numpy: 4-bit group-pair nibble packing for multi-hundred-MB
 // weight tensors at checkpoint save/load time, and the per-row min/max

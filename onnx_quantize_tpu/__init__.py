@@ -1,13 +1,13 @@
-"""onnx_quantize_tpu — a TPU-native post-training-quantization framework.
+"""onnx_quantize_tpu — a JAX post-training-quantization framework.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of the reference
 ``onnx_quantize`` library (see SURVEY.md): QConfig-driven weight-only / dynamic /
 static quantization (int4/uint4/int8/uint8; symmetric/asymmetric;
 per-tensor/per-channel/group), RTN/GPTQ/HQQ algorithms, SmoothQuant/AWQ
 pre-passes, jit'd calibration with activation taps, and quantized execution via
-fused Pallas dequant-matmul kernels on TPU — plus the serving pieces the
-reference outsources to ONNX Runtime: an inference engine with an int8 KV-cache
-and mesh-sharded multi-chip execution.
+a fused W4 dequant-matmul decode kernel (Pallas, Triton route) on the GPU —
+plus the serving pieces the reference outsources to ONNX Runtime: an inference engine with an int8 KV-cache
+and mesh-sharded multi-device execution.
 """
 
 from onnx_quantize_tpu import _logging  # noqa: F401  (configures package logger)

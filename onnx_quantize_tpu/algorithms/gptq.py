@@ -19,7 +19,7 @@ reference cites at ``gptq.py:251``): row slice ``Hinv1[i, i:]`` so error
 actually propagates into not-yet-quantized channels. This strictly improves
 quantized accuracy over the reference at identical configs.
 
-TPU-first design: the sequential column loop is expressed as a
+Accelerator-first design: the sequential column loop is expressed as a
 ``lax.fori_loop`` over masked rank-1 updates inside a single jit (columns padded
 to a block-and-group multiple with numerically-transparent zero rows), so the
 whole sweep compiles to one XLA program per weight shape — including mse (the

@@ -6,7 +6,7 @@ preprocess -> qparams -> quantize -> layout postprocess, with scale/zp squeezed
 for tensor/channel strategies and kept ``(rows, 1)`` for group strategy; plus the
 int32 bias quantizer with ``bias_scale = w_scale * x_scale`` and zp = 0.
 
-The math runs through the jnp numerics core, so it executes on TPU when weights
+The math runs through the jnp numerics core, so it executes on the accelerator when weights
 are device-resident and on CPU otherwise.
 """
 

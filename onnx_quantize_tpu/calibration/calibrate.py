@@ -1,11 +1,12 @@
 """Calibration: jit'd forwards with activation taps.
 
-TPU-native replacement for the reference's ORT-based calibration runtime
+JAX replacement for the reference's ORT-based calibration runtime
 (``/root/reference/src/onnx_quantize/core/_calibration/calibrate.py:204-382``).
 Where the reference temporarily rewires graph outputs and runs an ORT session,
 we run the model's own ``apply`` under ``jax.jit`` with a tap context — the
 taps are returned as extra jit outputs, so XLA compiles one program per batch
-shape and the forward runs on the configured backend (cpu or tpu).
+shape and the forward runs on the configured backend (cpu, gpu, or JAX's
+default).
 
 Behavioral parity:
   * random calibration data fallback (seeded rng; int inputs drawn in
@@ -16,7 +17,9 @@ Behavioral parity:
     ``calibrate.py:254-285``,
   * raw concatenated inputs captured for GPTQ/AWQ/SmoothQuant —
     ``calibrate.py:288-307``,
-  * backend-unavailable warning with cpu fallback — ``calibrate.py:184-201``.
+  * backend availability check — ``calibrate.py:184-201``; where the
+    reference warns and falls back to the CPU, an unavailable backend is an
+    error here, so calibration never moves to the host unasked.
 """
 
 from __future__ import annotations
@@ -79,17 +82,18 @@ def _prepare_calibration_data(
 
 
 def _resolve_backend(backend: Backend) -> str:
+    """The JAX platform calibration forwards run on; raises if it is absent."""
+    if backend == Backend.DEFAULT:
+        return jax.default_backend()
     try:
         jax.devices(backend.value)
-        return backend.value
-    except RuntimeError:
+    except RuntimeError as exc:
         available = sorted({d.platform for d in jax.devices()})
-        logger.warning(
-            "Requested backend '%s' is not available (available platforms: %s). "
-            "Falling back to 'cpu', which may be much slower.",
-            backend.value, available,
-        )
-        return "cpu"
+        raise ValueError(
+            f"Calibration backend '{backend.value}' is not available "
+            f"(available platforms: {available})"
+        ) from exc
+    return backend.value
 
 
 def collect_activations(

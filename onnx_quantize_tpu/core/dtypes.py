@@ -1,9 +1,9 @@
 """Quantization dtype system.
 
-TPU-native re-design of the reference dtype layer
+JAX re-design of the reference dtype layer
 (``/root/reference/src/onnx_quantize/core/_dtypes.py:8-70``): the same three range
 tables (full asymmetric, symmetric, reduced) and the same string-parsing surface,
-but carrying JAX dtypes (``jnp.int4``/``jnp.uint4`` are first-class on TPU) in
+but carrying JAX dtypes (``jnp.int4``/``jnp.uint4`` are first-class JAX dtypes) in
 addition to numpy container dtypes used on the host-side planning path.
 """
 
@@ -55,7 +55,7 @@ _NP_DTYPES = {
     "uint32": np.dtype(np.uint32),
 }
 
-# JAX dtypes used on-device. int4/uint4 are native jnp dtypes on TPU.
+# JAX dtypes used on-device. int4/uint4 are native jnp dtypes.
 _JNP_DTYPES = {
     "int4": jnp.int4,
     "uint4": jnp.uint4,

@@ -25,7 +25,7 @@ class QFormat(str, enum.Enum):
 
     QDQ: weights stored quantized, dequantized (fused) into fp matmul — the
     accuracy-parity path. QLINEAR: full int8 compute with requantized outputs —
-    the int-MXU performance path.
+    the integer tensor-core path.
     """
 
     QDQ = "qdq"

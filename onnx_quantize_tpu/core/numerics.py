@@ -1,6 +1,6 @@
-"""Qparam math core (pure jnp — runs on TPU or CPU backend identically).
+"""Qparam math core (pure jnp — runs on any JAX backend identically).
 
-TPU-native re-implementation of the reference numerics layer
+JAX re-implementation of the reference numerics layer
 (``/root/reference/src/onnx_quantize/core/_algorithms/utils.py:6-348``), keeping
 its exact numeric rules so quantized artifacts match at the bit level:
 

@@ -3,13 +3,13 @@
 Capability-parity re-implementation of the reference config system
 (``/root/reference/src/onnx_quantize/core/_qconfig.py:46-502``): the same public
 surface (``QConfig``, ``QWeightArgs``, ``QActivationArgs``, plugin registries)
-and the same cross-field validation rules, adapted to the TPU build:
+and the same cross-field validation rules, adapted to this JAX build:
 
   * ``target_op_types`` still accepts {"MatMul", "Gemm"}; in the module world a
     ``Linear`` without bias is a MatMul site, with bias a Gemm site.
   * calibration executes as jit'd JAX forwards with activation taps, so
     ``CalibrationParams.backend`` replaces the ORT ExecutionProvider enum
-    (``_calibration/base.py:12-32``) with JAX platforms (cpu/tpu).
+    (``_calibration/base.py:12-32``) with JAX platforms (cpu/gpu, or JAX's default).
   * configs round-trip through the serialized :class:`~onnx_quantize_tpu.plan.QuantPlan`
     (the analogue of ``node.meta["qconfig"]``), which is why algorithm and
     preprocessor configs dispatch through tag registries.
@@ -56,14 +56,17 @@ _SUPPORTED_OP_TYPES = ("MatMul", "Gemm")
 
 
 class Backend(str, enum.Enum):
-    """JAX platform used to run calibration forwards (our ExecutionProvider)."""
+    """JAX platform used to run calibration forwards (our ExecutionProvider).
+
+    ``DEFAULT`` resolves to ``jax.default_backend()`` when calibration runs."""
 
     CPU = "cpu"
-    TPU = "tpu"
+    GPU = "gpu"
+    DEFAULT = "default"
 
     @classmethod
     def from_alias(cls, value: str) -> "Backend":
-        aliases = {"cpu": cls.CPU, "tpu": cls.TPU, "default": cls.TPU}
+        aliases = {"cpu": cls.CPU, "gpu": cls.GPU, "default": cls.DEFAULT}
         key = value.lower()
         if key in aliases:
             return aliases[key]
@@ -387,7 +390,7 @@ class QConfig(BaseModel):
         target_op_types: which site kinds to quantize; a ``Linear`` with bias is
             a "Gemm" site, without bias a "MatMul" site.
         weights / input_activations / output_activations: per-tensor-class args.
-        format: QDQ (fp compute with dequantized weights) or QLINEAR (int8 MXU
+        format: QDQ (fp compute with dequantized weights) or QLINEAR (int8 tensor-core
             compute with requantized outputs).
         calibration_params / calibration_data: calibration configuration. A
             single array maps to the model's first input; a dict maps input

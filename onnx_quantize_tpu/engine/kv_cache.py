@@ -37,19 +37,16 @@ __all__ = ["KVCacheConfig", "QuantizedKV", "init_cache", "write_kv", "read_kv",
 class QuantizedKV:
     """A layer's int8/int4 K/V cache view, consumed without dequantization.
 
-    ``use_kernel=True`` routes decode steps to the fused flash-decode Pallas
-    kernel (``ops/kernels/flash_decode.py``, int8 only); otherwise the model
-    runs the scale-folded XLA attend: K/V enter the einsums as raw int casts
-    (which XLA fuses into the dot reads) and the per-(token, head) scales
-    apply to the score columns / attention weights — no dequantized
-    (B, S, H, D) cache array ever exists. Int4 views hold packed uint8
+    The model runs the scale-folded XLA attend on it: K/V enter the einsums
+    as raw int casts (which XLA fuses into the dot reads) and the
+    per-(token, head) scales apply to the score columns / attention weights —
+    no dequantized (B, S, H, D) cache array ever exists. Int4 views hold packed uint8
     (last dim D/2); ``k_ints()``/``v_ints()`` give the int8-valued codes."""
 
     k: Any  # (B, S, H_kv, D) int8, or (B, S, H_kv, D/2) uint8 packed int4
     v: Any
     k_scale: Any  # (B, S, H_kv) f32
     v_scale: Any
-    use_kernel: bool = False
 
     def k_ints(self):
         return unpack_nibbles(self.k) if self.k.dtype == jnp.uint8 else self.k
@@ -149,8 +146,7 @@ def write_kv(cache: dict, layer: int, k, v, positions) -> dict:
         # positions (B, T). ONE scatter straight into the 5D buffer — the
         # earlier slice-out/update/slice-in pattern
         # (``buf.at[layer].set(buf[layer].at[...].set(rows))``) compiled to
-        # 4.7x slower writes at the 4B shape (round-2 probe
-        # ``tpu_probe_kv_parts.py``: 2079 -> 439 us/step over 34 layers).
+        # several times slower writes at the 4B shape.
         # mode="drop": out-of-range positions (sequences at capacity) skip
         # the write instead of clamping onto the last slot.
         B = rows.shape[0]
@@ -212,10 +208,8 @@ def write_kv_window(cache: dict, layer: int, k, v, start, ok) -> dict:
     """Contiguous-window K/V write at per-row offsets (B rows, T columns).
 
     ``write_kv``'s general scatter lowers to cache traffic proportional to
-    S_max when the (B, T) positions are per-row OFFSET windows (measured on
-    the 4B speculative verify, round 3: 15.2 ms at S=2048 vs 4.4 ms at
-    S=512, and a bf16 cache doubles it — the scatter rewrites the cache, not
-    the window). Per-row in-place ``dynamic_update_slice`` costs O(B*T*H*D):
+    S_max when the (B, T) positions are per-row OFFSET windows (the scatter
+    rewrites the cache, not the window). Per-row in-place ``dynamic_update_slice`` costs O(B*T*H*D):
     the same verify drops to decode-step cost.
 
     ``start``: (B,) int32 window starts; ``ok``: (B,) bool — rows with
@@ -253,12 +247,11 @@ def write_kv_window(cache: dict, layer: int, k, v, start, ok) -> dict:
     return new
 
 
-def read_kv_quantized(cache: dict, layer: int, use_kernel: bool = False) -> QuantizedKV:
+def read_kv_quantized(cache: dict, layer: int) -> QuantizedKV:
     """The layer's raw int8 K/V + scales (no dequantization, no HBM copy)."""
     return QuantizedKV(
         k=cache["k"][layer], v=cache["v"][layer],
         k_scale=cache["k_scale"][layer], v_scale=cache["v_scale"][layer],
-        use_kernel=use_kernel,
     )
 
 

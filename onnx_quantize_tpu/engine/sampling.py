@@ -2,9 +2,8 @@
 
 ``sample`` applies ONE SamplingParams to the whole batch (the reference-shaped
 API). ``sample_batch`` is the serving-path sampler: per-row parameter arrays
-so heterogeneous requests sample inside one compiled program (the chunked
-scheduler's requirement — VERDICT r2 item #2). Logits are cast to f32 at the
-sampling boundary so a bf16 activation stream never changes sampled tokens or
+so heterogeneous requests sample inside one compiled program. Logits are cast
+to f32 at the sampling boundary so a bf16 activation stream never changes sampled tokens or
 top-p cutoffs (8-bit-mantissa softmax/cumsum drift).
 """
 

@@ -13,7 +13,7 @@ Greedy and EXACT: the emitted stream equals the target-only greedy decode
 token-for-token regardless of draft quality (a bad draft only costs speed —
 pinned by ``tests/engine/test_speculative.py`` with an adversarial draft).
 
-Mechanics that make this cheap on TPU / XLA:
+Mechanics that make this cheap under XLA:
 
 * static shapes everywhere — each round is draft-scan(k) + one (B, k+1)
   target forward inside ONE ``lax.scan`` over rounds; nothing recompiles as
@@ -144,7 +144,7 @@ class SpeculativeDecoder:
         holder = {"cache": dict(cache)}
         # kv_window: contiguous per-row writes via dynamic_update_slice —
         # the general scatter costs cache traffic proportional to max_seq
-        # for offset windows (4B verify 15.2 -> ~5 ms; BENCH.md round 3).
+        # for offset windows.
         logits = eng._forward(
             params, holder, ids, positions, kv_positions, kv_window=(L, act)
         )

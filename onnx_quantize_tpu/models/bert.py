@@ -6,7 +6,7 @@ ORT, and asserts *exact* accuracies on a 100-sample GLUE validation slice
 (``/root/reference/test/integration/bert/test_bert_weights_only.py:10-65``,
 ``test_bert_weights_inputs.py:11-68``, ``test_bert_weights_inputs_outputs.py:18-79``).
 This environment has no network or HF cache, so this module provides the
-TPU-native analogue end to end: the encoder architecture (post-LayerNorm
+JAX analogue end to end: the encoder architecture (post-LayerNorm
 blocks, biased Gemm projections, [CLS] pooler + tanh, classification head —
 the DistilBERT shape), a deterministic synthetic sentiment task, and a small
 deterministic training loop that reaches DistilBERT-SST2-like accuracy

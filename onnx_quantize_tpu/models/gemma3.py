@@ -159,17 +159,6 @@ class Gemma3Attention(nn.Module):
         # the int8/int4 KV-quantization relief RoPE prevents folding.
         self.qk_rot: np.ndarray | None = None
 
-    def _flash_ok(self, use_flash, T: int) -> bool:
-        if use_flash is False:
-            return False
-        tileable = T % 16 == 0 and self.cfg.head_dim % 16 == 0
-        if use_flash is True:
-            return tileable
-        # "auto": only where the blockwise kernel clearly pays off.
-        import jax
-
-        return tileable and T >= 512 and jax.default_backend() == "tpu"
-
     def _qkv(self, params, x, positions, ctx):
         cfg = self.cfg
         B, T, _ = x.shape
@@ -220,7 +209,7 @@ class Gemma3Attention(nn.Module):
         return q, k, v
 
     def __call__(self, params, x, positions, mask, ctx: Context | None = None,
-                 kv_write=None, use_flash: bool | str = "auto"):
+                 kv_write=None):
         """mask: (B, 1, T, S) additive f32 mask (0 / -inf)."""
         cfg = self.cfg
         B, T, _ = x.shape
@@ -257,18 +246,6 @@ class Gemma3Attention(nn.Module):
             kv = kv_write(self.layer_idx, k, v)
             from onnx_quantize_tpu.engine.kv_cache import QuantizedKV
 
-            if isinstance(kv, QuantizedKV) and kv.use_kernel:
-                # Fused decode attention over the raw int8 cache: one kernel
-                # per layer, no float cache materialization (T == 1 only).
-                from onnx_quantize_tpu.ops.kernels.flash_decode import flash_decode_int8
-
-                out = flash_decode_int8(
-                    q[:, 0], kv.k, kv.k_scale, kv.v, kv.v_scale,
-                    positions[:, 0],
-                    window=None if self.is_global else cfg.sliding_window,
-                )
-                out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
-                return self.o_proj(params["o_proj"], out.astype(x.dtype), ctx=ctx)
             if isinstance(kv, QuantizedKV):
                 # Scale-folded XLA attend on the raw int8 cache: the per-
                 # (token, head) K scale is a column scale of the score matrix
@@ -294,19 +271,6 @@ class Gemma3Attention(nn.Module):
                 out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
                 return self.o_proj(params["o_proj"], out.astype(x.dtype), ctx=ctx)
             k, v = kv
-        elif self._flash_ok(use_flash, T):
-            # Full-sequence (prefill / perplexity) path: blockwise attention,
-            # no (T, S) score matrix in HBM. The mask is reconstructed from
-            # the causal + sliding-window structure inside the kernel.
-            from onnx_quantize_tpu.ops.kernels.flash_attention import flash_attention
-
-            out = flash_attention(
-                q, k, v,
-                causal=True,
-                sliding_window=None if self.is_global else cfg.sliding_window,
-            )
-            out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
-            return self.o_proj(params["o_proj"], out, ctx=ctx)
         S = k.shape[1]
 
         group = cfg.num_heads // cfg.num_kv_heads
@@ -338,28 +302,6 @@ class Gemma3MLP(nn.Module):
             from onnx_quantize_tpu.ops import quantized_matmul
 
             w = params["_fused_gate_up"]["w"]
-            dn = params["down_proj"].get("w")
-            if (
-                getattr(self, "use_megakernel", False)
-                and self.activation == "gelu_tanh"  # the kernel computes GeGLU
-                and isinstance(w, nn.QTensor)
-                and isinstance(dn, nn.QTensor)
-                and "prescale" not in params["down_proj"]
-                and self.down_proj.tp_reduce is None
-                # R4 online rotation sits between GeGLU and down — the fused
-                # kernel has no hook for it.
-                and self.down_rot is None
-            ):
-                # Decode megakernel: gate/up matmul + GeGLU + down matmul in
-                # ONE pallas_call (launch-latency lever, see mlp_w4.py).
-                from onnx_quantize_tpu.ops.kernels.mlp_w4 import (
-                    mlp_w4_eligible,
-                    mlp_w4_fused,
-                )
-
-                M = int(np.prod(x.shape[:-1]))
-                if mlp_w4_eligible(w, dn, M):
-                    return mlp_w4_fused(x, w, dn).astype(x.dtype)
             if isinstance(w, nn.QTensor):
                 gu = quantized_matmul(x, w)
             else:
@@ -446,7 +388,7 @@ class Gemma3MoEMLP(nn.Module):
     MatMul site it finds — MoE experts are just more of them), and the router
     itself is a (tiny) MatMul site usually excluded via ``ignore``.
 
-    Execution is the TPU-idiomatic *dense-masked* scheme: each expert runs
+    Execution is the *dense-masked* scheme: each expert runs
     over the full token set with unrouted rows zeroed, outputs combine with
     the routing weights. At decode (the memory-bound phase) this is
     bandwidth-optimal — all resident expert weights stream from HBM once per
@@ -496,9 +438,11 @@ class Gemma3MoEMLP(nn.Module):
         self.ep_axis: str | None = None
         # Prefill dispatch: at large M the dense-masked scheme pays E/top_k x
         # the routed MLP FLOPs (fine at decode where bytes dominate; waste in
-        # the compute-bound prefill regime). "auto" switches to the sorted
-        # ragged_dot path (compute proportional to routed tokens) on TPU at
-        # M >= 128 — the same phase boundary as the W4 kernel's M-routing.
+        # the compute-bound prefill regime). True forces the sorted
+        # ragged_dot path (compute proportional to routed tokens), False the
+        # dense-masked one. "auto" takes dense-masked: on the H100, at the
+        # bench MoE config in bf16, ragged_dot was slower at M = 8192
+        # (chip_smoke.py's MoE phase; PERF.md).
         self.use_ragged_prefill: bool | str = "auto"
 
     @staticmethod
@@ -520,23 +464,10 @@ class Gemma3MoEMLP(nn.Module):
                     return False
         return True
 
-    def _ragged_ok(self, layout, M: int, fused_source: bool = False) -> bool:
-        mode = self.use_ragged_prefill
-        if mode is False or layout is None or self.ep_axis is not None:
+    def _ragged_ok(self, layout) -> bool:
+        if self.use_ragged_prefill is not True or layout is None:
             return False
-        if not self._ragged_compatible(layout):
-            return False
-        if mode is True:
-            return True
-        if fused_source:
-            # Ragged from the FUSED layout dequantizes the whole concatenated
-            # MLP in-program (3.7 GB of scratch traffic at the 8x2816 bench
-            # config) before it can gather — at serving-admission M (~2k) that
-            # traffic eats the routed-FLOP savings and dense-masked fused is
-            # +8.4% end-to-end (scripts/tpu_probe_moe_serve.py, BENCH.md
-            # round 5). The dequant amortizes at bulk-prefill M only.
-            return M >= 8192 and jax.default_backend() == "tpu"
-        return M >= 128 and jax.default_backend() == "tpu"
+        return self.ep_axis is None and self._ragged_compatible(layout)
 
     @staticmethod
     def _dense_stack(site: dict, dtype):
@@ -673,8 +604,7 @@ class Gemma3MoEMLP(nn.Module):
         stacked = params.get("_stacked_experts")
         fused = params.get("_fused_experts")
         ragged_src = stacked if stacked is not None else fused
-        if self._ragged_ok(ragged_src, int(np.prod(x.shape[:-1])),
-                           fused_source=stacked is None and fused is not None):
+        if self._ragged_ok(ragged_src):
             if stacked is None:
                 inter = cfg.moe_intermediate_size or cfg.intermediate_size
                 ragged_src = self._fused_to_stacked_dense(fused, inter)
@@ -744,10 +674,9 @@ class Gemma3Block(nn.Module):
                                          dtype=dt, one_plus=one_plus)
 
     def __call__(self, params, x, positions, mask, ctx: Context | None = None,
-                 kv_write=None, use_flash: bool | str = "auto"):
+                 kv_write=None):
         h = self.input_norm(params["input_norm"], x)
-        h = self.attn(params["attn"], h, positions, mask, ctx=ctx, kv_write=kv_write,
-                      use_flash=use_flash)
+        h = self.attn(params["attn"], h, positions, mask, ctx=ctx, kv_write=kv_write)
         if self.sandwich:
             h = self.post_attn_norm(params["post_attn_norm"], h)
         x = x + h
@@ -832,9 +761,6 @@ class Gemma3(nn.Module):
         # (quantize() unties it automatically when both are quantized).
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, use_bias=False, dtype=dt)
         self.input_specs = [InputSpec("input_ids", (8,), np.int32)]
-        # Attention implementation for the full-sequence (no-cache) path:
-        # "auto" (flash on TPU at T >= 512), True, or False.
-        self.use_flash: bool | str = "auto"
         # Tensor-parallel marker set by tp_localize: all-gather the
         # vocab-sharded logits over this axis at the very end.
         self._tp_gather_logits: str | None = None
@@ -876,11 +802,10 @@ class Gemma3(nn.Module):
             mask_local = make_attention_mask(cfg, positions, kv_positions, is_global=False)
             mask_global = make_attention_mask(cfg, positions, kv_positions, is_global=True)
 
-        use_flash = getattr(self, "use_flash", "auto")
         for i, block in enumerate(self.blocks):
             mask = mask_global if cfg.is_global_layer(i) else mask_local
             x = block(params[f"layers.{i}"], x, positions, mask, ctx=ctx,
-                      kv_write=kv_write, use_flash=use_flash)
+                      kv_write=kv_write)
 
         return self.final_norm(params["final_norm"], x)
 
@@ -916,7 +841,7 @@ class Gemma3(nn.Module):
             return self, rules
         if cfg.num_heads % tp != 0:
             raise ValueError(f"num_heads={cfg.num_heads} not divisible by tp={tp}")
-        # KV-head placement (GQA grid — VERDICT r2 item #4):
+        # KV-head placement:
         #   * num_kv_heads % tp == 0  -> shard KV heads (column-parallel k/v),
         #   * 1 < num_kv_heads < tp, tp % num_kv_heads == 0 -> replicate k/v
         #     and slice: each device keeps the one KV head its query shard

@@ -1,7 +1,7 @@
 """Llama/Qwen-family causal LMs on the shared decoder.
 
 The reference quantizes any ONNX model with MatMul/Gemm sites — it is not
-Gemma-specific — so the TPU framework's model zoo should not be either. The
+Gemma-specific — so this framework's model zoo should not be either. The
 Llama architecture is the Gemma-3 decoder with a handful of conventions
 flipped (no QK-norm, pre-norm only, SiLU MLP, unscaled embeddings, plain-w
 RMSNorm, single rope theta with optional llama3 frequency scaling, no

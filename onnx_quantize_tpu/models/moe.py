@@ -261,10 +261,10 @@ def _concat_k_sites(sites: list[dict]) -> dict:
 def fuse_moe_experts(params: dict) -> dict:
     """Engine-load transform: concatenate ALL experts into TWO matmul sites.
 
-    The dense-masked per-expert loop runs 2E small kernels per layer; on
-    decode shapes those sit at the W4 kernel's small-shape floor (243-373
-    GB/s measured, scripts/tpu_probe_moe.py). Concatenation moves both ops
-    into the kernel's best regimes with 2 launches total:
+    The dense-masked per-expert loop runs 2E small matmuls per layer; on
+    decode shapes those are too small to stream weights at full bandwidth.
+    Concatenation moves both ops into fat, bandwidth-friendly shapes with 2
+    launches total:
 
       * ``gate_up``: per-expert fused [gate|up] blocks concatenate along N
         (all experts share the input) -> one fat-N matmul,

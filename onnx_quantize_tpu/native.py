@@ -1,8 +1,9 @@
 """ctypes bindings for the native host library (``native/oqt_native.cpp``).
 
 Builds the shared object on first use when a C++ toolchain is present
-(``make -C native``) and falls back to pure numpy when it is not — import
-never fails. The numpy fallbacks are the same functions the rest of the
+(``make -C native``) — and rebuilds it when it is older than its source, since
+a library built on another machine may not match this one — and falls back to
+pure numpy when it cannot — import never fails. The numpy fallbacks are the same functions the rest of the
 framework already uses, so behavior is identical either way.
 """
 
@@ -19,24 +20,52 @@ from onnx_quantize_tpu._logging import get_logger
 
 logger = get_logger(__name__)
 
-__all__ = ["get_lib", "pack_group_pairs", "unpack_group_pairs", "minmax_rows"]
+__all__ = ["get_lib", "build_error", "pack_group_pairs", "unpack_group_pairs",
+           "minmax_rows"]
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 _LIB_PATH = _NATIVE_DIR / "liboqt_native.so"
+_SRC_PATH = _NATIVE_DIR / "oqt_native.cpp"
 _LIB = None
 _TRIED = False
 
 
+_BUILD_ERROR: str | None = None
+
+
 def _build() -> bool:
-    try:
-        subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)],
-            check=True, capture_output=True, timeout=120,
-        )
-        return _LIB_PATH.exists()
-    except Exception as exc:  # toolchain missing / build failure
-        logger.debug("native build skipped: %s", exc)
-        return False
+    """``make -C native``, else the compiler directly without OpenMP or
+    ``-march=native`` (a machine may lack make or libgomp)."""
+    global _BUILD_ERROR
+    cxx = os.environ.get("CXX", "c++")
+    commands = [
+        ["make", "-C", str(_NATIVE_DIR)],
+        [cxx, "-O3", "-fPIC", "-shared", "-std=c++17", "-o", str(_LIB_PATH),
+         str(_SRC_PATH)],
+    ]
+    for cmd in commands:
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            if _LIB_PATH.exists():
+                _BUILD_ERROR = None
+                return True
+        except Exception as exc:  # toolchain missing / build failure
+            detail = getattr(exc, "stderr", b"") or b""
+            _BUILD_ERROR = f"{cmd[0]}: {exc} {detail.decode(errors='replace')[-300:]}"
+            logger.debug("native build step failed: %s", _BUILD_ERROR)
+    return False
+
+
+def build_error() -> str | None:
+    """Why the last build attempt failed (None if it did not)."""
+    return _BUILD_ERROR
+
+
+def needs_build(lib_path: Path = _LIB_PATH, src_path: Path = _SRC_PATH) -> bool:
+    """True when the library is missing or older than its source."""
+    if not lib_path.exists():
+        return True
+    return src_path.exists() and lib_path.stat().st_mtime < src_path.stat().st_mtime
 
 
 def get_lib():
@@ -47,7 +76,7 @@ def get_lib():
     _TRIED = True
     if os.environ.get("OQT_DISABLE_NATIVE"):
         return None
-    if not _LIB_PATH.exists() and not _build():
+    if needs_build() and not _build():
         return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))

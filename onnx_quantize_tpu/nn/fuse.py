@@ -1,7 +1,6 @@
 """Horizontal fusion of same-input linear sites (q/k/v, gate/up).
 
-Decode on launch-latency-bound runtimes is dominated by per-kernel overhead
-(BENCH.md); fusing sites that share an input into one wider matmul cuts the
+Decode at small batch pays a fixed cost per kernel launch; fusing sites that share an input into one wider matmul cuts the
 launch count without changing numerics: packed data, scales, and zero points
 concatenate along N (same K, same group geometry), so the fused kernel
 computes exactly the concatenation of the per-site outputs.

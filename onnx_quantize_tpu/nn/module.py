@@ -1,6 +1,6 @@
 """Minimal functional module system.
 
-The TPU-native stand-in for the reference's ONNX graph: a model is a tree of
+The JAX stand-in for the reference's ONNX graph: a model is a tree of
 :class:`Module` objects (static structure) plus a separate params pytree
 (dicts mirroring the tree). Quantizable matmuls are :class:`Linear` sites — a
 Linear with bias is a "Gemm" site, without bias a "MatMul" site, matching the
@@ -199,11 +199,11 @@ class Linear(Module):
             if b is not None:
                 y = y + b
 
-        # Accumulate in f32 (the QDQ chain and the MXU accumulator are f32),
+        # Accumulate in f32 (the QDQ chain and the tensor-core accumulator are f32),
         # but hand the ACTIVATION back in the caller's dtype. Without this the
-        # first residual add promotes the whole stream to f32 — measured on
-        # the 4B engine (round 2): f32 attends over the int8 KV cache ran 7x
-        # slower than bf16 and every downstream kernel received f32 operands.
+        # first residual add promotes the whole stream to f32: attends over
+        # the int8 KV cache run in f32 and every downstream matmul receives
+        # f32 operands.
         # Identity on the f32 test paths.
         y = y.astype(in_dtype)
 

@@ -1,19 +1,19 @@
 """QTensor: the quantized-weight pytree leaf.
 
-The TPU-native analogue of the reference's quantized initializer triple
+The JAX analogue of the reference's quantized initializer triple
 (``W_q``, ``scale``, ``zero_point`` emitted at ``qrules/_common.py:126-144``)
 *plus* the execution spec the reference encodes in its choice of qfunction
 (``qfunctions/_qdq/qmatmul.py:9-173``): format, activation quant modes, and the
 static activation qparams.
 
-Layout is TPU-first (SURVEY.md §2B): weights keep the logical ``(K, N)``
+Layout is kernel-first (SURVEY.md §2B): weights keep the logical ``(K, N)``
 orientation with ``N`` (out features) on the lane axis; group scales are
 ``(n_groups, N)`` so a K-tile broadcasts one scale row. 4-bit weights use
 *group-pair* nibble packing: the low nibble of packed row ``p*gs + r`` holds
 logical row ``(2p)*gs + r`` (scale group ``2p``) and the high nibble holds
 ``(2p+1)*gs + r`` (group ``2p+1``). Unpacking is therefore two masked shifts
 and NO sublane interleave — the Pallas kernel turns one packed ``(gs, bn)``
-tile into two dequantized ``(gs, bn)`` tiles that feed two MXU dots against
+tile into two dequantized ``(gs, bn)`` tiles that feed two tensor-core dots against
 contiguous ``x`` column chunks. Non-group strategies use one virtual group
 pair spanning the two K-halves. This deliberately differs from ORT's
 MatMulNBits blob layout (``qrules/_common.py:65-123``) — parity is semantic,
@@ -197,10 +197,10 @@ def unpack_k_pairs(data: jnp.ndarray, K: int, signed: bool, pack_group: int) -> 
 
 def _layout_scale(scale: np.ndarray, zp: np.ndarray, strategy: QuantizationStrategy,
                   K: int, N: int):
-    """Convert algorithm-layout scale/zp to the TPU layout.
+    """Convert algorithm-layout scale/zp to the kernel layout.
 
     Algorithms return: scalar (tensor), (N,) (channel), or (N * n_groups, 1)
-    (group, row-major over out channels). TPU layout wants (n_groups, N).
+    (group, row-major over out channels). The kernel layout wants (n_groups, N).
     """
     scale = np.asarray(scale)
     zp = np.asarray(zp)

@@ -4,9 +4,10 @@
 sites (the analogue of the reference's qfunction factory,
 ``qfunctions/factory.py:22``). The implementation is selected globally:
 
-  * ``"jnp"``: the pure-jnp reference semantics (CPU tests, oracle).
-  * ``"pallas"``: fused Pallas TPU kernels (production path).
-  * ``"auto"``: pallas on TPU when a kernel covers the config, else jnp.
+  * ``"jnp"``: the pure-jnp reference semantics (oracle).
+  * ``"pallas"``: the fused GPU kernel wherever it covers the config; off the
+    GPU only with ``interpret=True`` (Pallas interpreter, for tests).
+  * ``"auto"``: per backend and shape, see :func:`ops.dispatch.select_path`.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ __all__ = ["quantized_matmul", "set_impl", "get_impl", "convert_to_w4a8"]
 def convert_to_w4a8(params):
     """Switch weights-only QTensors to the dynamic-int8-activation (A8) mode.
 
-    Sets ``input_quant`` to dynamic symmetric int8 so the s8xs8 MXU kernels
-    pick the sites up (4-bit weights -> W4A8 kernel; symmetric 8-bit weights
-    -> W8A8 kernel). This is a TPU-side capability extension beyond the
+    Sets ``input_quant`` to dynamic symmetric int8 on packed 4-bit weights
+    and symmetric 8-bit weights; the jnp semantics then fake-quantize each
+    activation per tensor before the dot. A capability extension beyond the
     reference (whose config layer restricts 4-bit to weights-only,
     ``_qconfig.py:482-485``): the artifact is unchanged, only the execution
     spec differs. Skips HQQ weights (float zero points cannot center in int8).
@@ -62,31 +63,39 @@ def convert_to_w4a8(params):
     return visit(params)
 
 _IMPL = "auto"
+_INTERPRET = False
 
 
-def set_impl(impl: str) -> None:
-    global _IMPL
+def set_impl(impl: str, *, interpret: bool = False) -> None:
+    """Select the quantized-matmul implementation for every later trace.
+
+    ``interpret=True`` runs Pallas kernels in the interpreter: the only way
+    ``impl="pallas"`` is allowed off the GPU."""
+    global _IMPL, _INTERPRET
     assert impl in {"auto", "jnp", "pallas"}, impl
     _IMPL = impl
+    _INTERPRET = interpret
 
 
 def get_impl() -> str:
     return _IMPL
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
+def quantized_matmul(x, qt: QTensor, bias=None, *, impl: str | None = None):
+    """``x @ dequant(qt) + bias`` on the path :func:`ops.dispatch.select_path`
+    picks; ``impl`` overrides the global selection for this call."""
+    from onnx_quantize_tpu.ops.dispatch import select_path
 
+    path = select_path(
+        x.shape[:-1], qt, backend=jax.default_backend(),
+        impl=_IMPL if impl is None else impl, interpret=_INTERPRET,
+    )
+    if path == "w4":
+        from onnx_quantize_tpu.ops.kernels.matmul_w4 import w4_entry
 
-def quantized_matmul(x, qt: QTensor, bias=None):
-    impl = _IMPL
-    if impl == "auto":
-        impl = "pallas" if _on_tpu() else "jnp"
-    if impl == "pallas":
-        from onnx_quantize_tpu.ops.dispatch import quantized_matmul_pallas
+        return w4_entry(x, qt, bias, interpret=_INTERPRET)
+    if path == "w8_fold":
+        from onnx_quantize_tpu.ops.folded import w8_folded_matmul
 
-        return quantized_matmul_pallas(x, qt, bias)
+        return w8_folded_matmul(x, qt, bias)
     return quantized_matmul_jnp(x, qt, bias)

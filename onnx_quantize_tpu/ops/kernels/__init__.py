@@ -1,42 +1,6 @@
-"""Pallas TPU kernel registry.
+"""Hand-written GPU kernels (Pallas on the Triton route).
 
-Kernels register themselves by predicate; :func:`select_kernel` returns the
-first kernel whose predicate covers the QTensor's config, or None to fall back
-to the jnp reference path.
+Only kernels that beat what XLA makes of the plain jnp version, end to end on
+the card, live here; :mod:`onnx_quantize_tpu.ops.dispatch` decides when each
+one runs.
 """
-
-from __future__ import annotations
-
-from typing import Callable
-
-from onnx_quantize_tpu.nn.qtensor import QTensor
-
-__all__ = ["register_kernel", "select_kernel"]
-
-_KERNELS: list[tuple[Callable, Callable]] = []  # (predicate, kernel)
-
-
-def register_kernel(predicate: Callable) -> Callable:
-    def deco(fn: Callable) -> Callable:
-        _KERNELS.append((predicate, fn))
-        return fn
-
-    return deco
-
-
-def select_kernel(x, qt: QTensor, bias):
-    for predicate, kernel in _KERNELS:
-        if predicate(x, qt, bias):
-            return kernel
-    return None
-
-
-# Import kernel modules so they register. Order matters: the A8 predicates are
-# strict subsets of the weight-only ones, so they must register first.
-from onnx_quantize_tpu.ops.kernels import (  # noqa: E402,F401
-    matmul_w4a8,
-    matmul_w8a8,
-    matmul_w4,
-    matmul_w8,
-    matmul_q8,
-)

@@ -1,87 +1,156 @@
-"""Fused W4 (uint4/int4) grouped dequant-matmul Pallas kernel.
+"""Fused W4 (uint4/int4) grouped dequant-matmul: Pallas on the Triton route.
 
-The MatMulNBits-equivalent flagship kernel (SURVEY.md §2B): packed 4-bit
-weights are unpacked *in registers* inside the kernel — thanks to the
-group-pair nibble layout (see ``nn/qtensor.py``), unpacking one packed
-``(gs, bn)`` tile is two masked shifts producing the dequantized tiles of two
-consecutive scale groups, each feeding an MXU dot against a contiguous
-``(bm, gs)`` x-chunk. No sublane interleave, scales broadcast along the K-tile
-from VMEM rows.
+The MatMulNBits-equivalent decode kernel (SURVEY.md §2B). Packed 4-bit weights
+are unpacked in registers: thanks to the group-pair nibble layout (see
+``nn/qtensor.py``) one packed ``(bk, bn)`` u8 tile yields the integer tiles of
+two consecutive scale groups with one mask and one shift, each feeding a
+tensor-core dot against a contiguous ``(bm, bk)`` x chunk. Raw nibbles are
+exact in bf16, and the dequant affine moves off the weight tile onto the
+``(bm, bn)`` partial product (scale/zp rows are constant within a group):
 
-Grid: ``(M/bm, N/bn, G_pad/2)`` with the group-pair axis innermost,
-accumulating in an f32 VMEM scratch and flushing on the last step.
+    x_g @ ((w_g - zp_g) * s_g) == (x_g @ w_g - rowsum(x_g) * zp_g) * s_g
+
+Grid ``(M/bm, N/bn, split_k)``: blocks run in parallel on the SMs, so the
+K reduction is a ``fori_loop`` over ``bk``-row tiles inside each block (Triton
+pipelines the packed-weight loads over ``num_stages``). Small-N sites split
+their group pairs over a third grid axis to fill the card; XLA sums the f32
+partials.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from onnx_quantize_tpu.core.enums import QFormat, QuantizationStrategy
 from onnx_quantize_tpu.nn.qtensor import QTensor
-from onnx_quantize_tpu.ops.kernels import register_kernel
 
-__all__ = ["w4_dequant_matmul"]
+__all__ = ["w4_dequant_matmul", "w4_supported", "W4Blocks", "pick_blocks"]
+
+# Hopper limits the picker works within (H100 SXM: 132 SMs, 227 KB of shared
+# memory a block can use).
+NUM_SMS = 132
+SMEM_LIMIT = 227 * 1024
+# Grid blocks per SM the picker aims for at decode.
+BLOCKS_PER_SM = 4
 
 
-def _w4_kernel(x_ref, w_ref, s_ref, z_ref, o_ref, acc_ref, *, gs, signed, n_k,
-               pairs_per_block, compute_dtype):
-    k = pl.program_id(2)
+def _w4_kernel(x_ref, w_ref, s_ref, z_ref, o_ref, *, gs, bk, signed, n_tiles,
+               compute_dtype):
+    # x_ref (bm, 2*pps*gs); w_ref (pps*gs, bn) u8; s_ref/z_ref (pps, 2, bn)
+    # f32; o_ref (bm, bn) f32: this split's partial.
+    sub = gs // bk
+    bm, bn = o_ref.shape
+    # f32 operands: HIGHEST keeps the Triton dot in IEEE f32 (its default
+    # is TF32); bf16 operands are unaffected.
+    prec = jax.lax.Precision.HIGHEST
 
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    # ``pairs_per_block`` group pairs per grid step (statically unrolled):
-    # small-K fat-N shapes (the 262k lm_head) are otherwise bound by per-grid-
-    # instance overhead (~1.5 us each on this runtime), not bandwidth.
-    for p in range(pairs_per_block):
-        # Nibble unpack in registers. Mosaic lacks a direct u8->f32 cast, so
-        # go through int32. The u8 source makes ``w >> 4`` already 0..15.
-        w = w_ref[p * gs : (p + 1) * gs, :].astype(jnp.int32)
+    def body(t, acc):
+        if sub == 1:
+            p, r = t, 0
+        else:  # t >= 0, so truncating div/rem are floor div/mod
+            p = jax.lax.div(t, sub)
+            r = jax.lax.rem(t, sub) * bk
+        w = w_ref[pl.ds(p * gs + r, bk), :].astype(jnp.int32)
         low = w & 0x0F
         high = w >> 4
         if signed:
-            low = jnp.where(low > 7, low - 16, low)
-            high = jnp.where(high > 7, high - 16, high)
-        # Raw nibble values are exact in bf16; the dequant affine moves OFF
-        # the (gs, bn) weight tile and onto the (bm, bn) partial product:
-        # scale/zp rows are constant within a tile, so
-        #   x @ ((w - zp) * s) == (x @ w - sum(x) * zp) * s.
-        # This cuts the VPU chain from ~6 ops/weight (sub, mul, casts) to the
-        # unpack alone (~2.5) — at Gemma-1B decode shapes the old chain was
-        # the binding cost (283 GB/s on gate_up vs W8's 643; BENCH.md r2).
-        low_c = low.astype(jnp.float32).astype(compute_dtype)
-        high_c = high.astype(jnp.float32).astype(compute_dtype)
+            low = (low ^ 8) - 8
+            high = (high ^ 8) - 8
+        xl = x_ref[:, pl.ds(2 * p * gs + r, bk)]
+        xh = x_ref[:, pl.ds((2 * p + 1) * gs + r, bk)]
+        dot_l = jnp.dot(xl, low.astype(compute_dtype), precision=prec,
+                        preferred_element_type=jnp.float32)
+        dot_h = jnp.dot(xh, high.astype(compute_dtype), precision=prec,
+                        preferred_element_type=jnp.float32)
+        xs_l = jnp.sum(xl.astype(jnp.float32), axis=1)[:, None]
+        xs_h = jnp.sum(xh.astype(jnp.float32), axis=1)[:, None]
+        s_l = s_ref[p, 0, :][None, :]
+        s_h = s_ref[p, 1, :][None, :]
+        z_l = z_ref[p, 0, :][None, :]
+        z_h = z_ref[p, 1, :][None, :]
+        return acc + (dot_l - xs_l * z_l) * s_l + (dot_h - xs_h * z_h) * s_h
 
-        x = x_ref[:]
-        lo = 2 * p * gs
-        xl = x[:, lo : lo + gs]
-        xh = x[:, lo + gs : lo + 2 * gs]
-        dot_l = jnp.dot(xl, low_c, preferred_element_type=jnp.float32)
-        dot_h = jnp.dot(xh, high_c, preferred_element_type=jnp.float32)
-        # Scale/zp rows for groups 2(kP+p), 2(kP+p)+1. Scales arrive (G/2, 2, N)
-        # blocked (P, 2, bn); the pair is selected by grid index + static p —
-        # Mosaic cannot prove sublane alignment for dynamic 2k row slices.
-        xs_l = jnp.sum(xl.astype(jnp.float32), axis=1, keepdims=True)
-        xs_h = jnp.sum(xh.astype(jnp.float32), axis=1, keepdims=True)
-        acc_ref[:] += (dot_l - xs_l * z_ref[p, 0:1, :]) * s_ref[p, 0:1, :] + (
-            dot_h - xs_h * z_ref[p, 1:2, :]
-        ) * s_ref[p, 1:2, :]
+    o_ref[...] = jax.lax.fori_loop(0, n_tiles, body,
+                                   jnp.zeros((bm, bn), jnp.float32))
 
-    @pl.when(k == n_k - 1)
-    def _():
-        o_ref[:] = acc_ref[:].astype(o_ref.dtype)
+
+@dataclasses.dataclass(frozen=True)
+class W4Blocks:
+    """Launch geometry of one W4 call."""
+
+    bm: int  # rows per block (power of two, >= 16 for the tensor cores)
+    bn: int  # output columns per block (power of two)
+    bk: int  # packed rows per loop step (power of two dividing gs)
+    split_k: int  # grid splits of the group pairs (divides n_pairs)
+    num_warps: int
+    num_stages: int
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _largest_pow2_divisor(n: int, cap: int) -> int:
+    d = 1
+    while d * 2 <= cap and n % (d * 2) == 0:
+        d *= 2
+    return d
+
+
+def smem_bytes(blocks: W4Blocks, x_itemsize: int) -> int:
+    """Shared memory the Triton pipeline needs for one block: ``num_stages``
+    buffered copies of the packed tile, the two x chunks and the scale/zp
+    rows, plus the two unpacked weight operands staged for the dot."""
+    b = blocks
+    per_stage = b.bk * b.bn + 2 * b.bm * b.bk * x_itemsize + 4 * b.bn * 4
+    operands = 2 * b.bk * b.bn * x_itemsize
+    return b.num_stages * per_stage + operands
+
+
+def pick_blocks(M: int, N: int, gs: int, n_pairs: int, x_itemsize: int) -> W4Blocks:
+    """Launch geometry for an ``(M, 2*n_pairs*gs) @ (.., N)`` W4 call.
+
+    Decode is bound by how many packed-weight loads are in flight, not by
+    the work per block: on the H100 the fastest decode geometry at every
+    Gemma-3 1B site was ``bn = 64`` with the group pairs split over the grid
+    until it holds ``BLOCKS_PER_SM`` blocks per SM, even at the cost of f32
+    partials as large as the packed weights (``chip_smoke.py`` and PERF.md).
+    Then the deepest ``bk`` (up to 128 rows) and pipeline (4..2 stages) that
+    fit the shared memory of one block."""
+    bm = min(64, max(16, _pow2_at_least(M)))
+    m_blocks = -(-M // bm)
+    target = BLOCKS_PER_SM * NUM_SMS
+    widths = [c for c in (64, 32) if N % c == 0]
+    bn = widths[0] if widths else 32
+    split = 1
+    for d in range(1, n_pairs + 1):
+        if n_pairs % d == 0:
+            split = d
+            if m_blocks * (N // bn) * d >= target:
+                break
+    bk = _largest_pow2_divisor(gs, 128)
+    while True:
+        for stages in (4, 3, 2):
+            cfg = W4Blocks(bm, bn, bk, split, 4, stages)
+            if smem_bytes(cfg, x_itemsize) <= SMEM_LIMIT:
+                return cfg
+        if bk > 16:
+            bk //= 2
+        elif bn > 32:
+            bn //= 2
+        else:
+            return cfg
 
 
 def _pad_axis(a, axis, to):
-    size = a.shape[axis]
-    pad = (-size) % to
+    pad = (-a.shape[axis]) % to
     if pad == 0:
         return a
     widths = [(0, 0)] * a.ndim
@@ -90,57 +159,54 @@ def _pad_axis(a, axis, to):
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("gs", "signed", "bm", "bn", "ppb", "interpret", "out_dtype"),
+    jax.jit, static_argnames=("gs", "signed", "blocks", "interpret")
 )
-def _w4_call(x2d, data, scales, zps, *, gs, signed, bm, bn, ppb, interpret,
-             out_dtype):
-    M, K_pad = x2d.shape
+def _w4_call(x2d, data, scales, zps, *, gs, signed, blocks: W4Blocks, interpret):
+    M_pad, K_pad = x2d.shape
     half_rows, N = data.shape
+    b = blocks
     n_pairs = half_rows // gs
-    n_k = n_pairs // ppb
-    compute_dtype = x2d.dtype
-
-    grid = (M // bm, N // bn, n_k)
+    pps = n_pairs // b.split_k
     kernel = functools.partial(
-        _w4_kernel, gs=gs, signed=signed, n_k=n_k, pairs_per_block=ppb,
-        compute_dtype=compute_dtype,
+        _w4_kernel, gs=gs, bk=b.bk, signed=signed,
+        n_tiles=pps * (gs // b.bk), compute_dtype=x2d.dtype,
     )
-    return pl.pallas_call(
+    out = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(M_pad // b.bm, N // b.bn, b.split_k),
         in_specs=[
-            pl.BlockSpec((bm, 2 * ppb * gs), lambda i, j, k: (i, k),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ppb * gs, bn), lambda i, j, k: (k, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ppb, 2, bn), lambda i, j, k: (k, 0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ppb, 2, bn), lambda i, j, k: (k, 0, j),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((b.bm, 2 * pps * gs), lambda i, j, s: (i, s)),
+            pl.BlockSpec((pps * gs, b.bn), lambda i, j, s: (s, j)),
+            pl.BlockSpec((pps, 2, b.bn), lambda i, j, s: (s, 0, j)),
+            pl.BlockSpec((pps, 2, b.bn), lambda i, j, s: (s, 0, j)),
         ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, k: (i, j), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((M, N), out_dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
+        out_specs=pl.BlockSpec((None, b.bm, b.bn), lambda i, j, s: (s, i, j)),
+        out_shape=jax.ShapeDtypeStruct((b.split_k, M_pad, N), jnp.float32),
+        compiler_params=plgpu.CompilerParams(
+            num_warps=b.num_warps, num_stages=b.num_stages
         ),
+        backend="triton",
+        interpret=interpret,
+        name="w4_dequant_matmul",
         cost_estimate=pl.CostEstimate(
-            flops=2 * M * 2 * half_rows * N,
-            bytes_accessed=M * K_pad * x2d.dtype.itemsize + half_rows * N + M * N * 4,
+            flops=2 * M_pad * K_pad * N,
+            bytes_accessed=M_pad * K_pad * x2d.dtype.itemsize + half_rows * N
+            + b.split_k * M_pad * N * 4,
             transcendentals=0,
         ),
-        interpret=interpret,
     )(x2d, data, scales, zps)
+    if b.split_k == 1:
+        return out[0]
+    return jnp.sum(out, axis=0)
 
 
 def _expand_scales(qt: QTensor, G_pad: int, N: int):
     """Normalize scale/zp to (G_pad, N) f32 rows, padded with (1, 0).
 
-    Inside a decode loop this pad/convert chain is NOT hoisted by XLA (it is
-    memory-expanding), costing ~8 extra fused kernels per site per step —
-    ``engine.prepare_kernel_scales`` pre-bakes the (G_pad/2, 2, N) layout at
-    load time, which short-circuits here via the pair-layout passthrough."""
+    Inside a decode loop this pad/convert chain is memory-expanding, so XLA
+    does not hoist it out of the scan; ``engine.prepare_kernel_scales``
+    pre-bakes the (G_pad/2, 2, N) layout at load time, which short-circuits
+    here via the pair-layout passthrough."""
     strat = qt.meta.strat
     scale = jnp.asarray(qt.scale, jnp.float32)
     zp = jnp.asarray(qt.zero_point, jnp.float32)
@@ -165,139 +231,58 @@ def _expand_scales(qt: QTensor, G_pad: int, N: int):
     )
 
 
-def w4_dequant_matmul(x, qt: QTensor, *, interpret: bool | None = None):
-    """``x @ dequant(qt)`` with in-kernel nibble unpack. x: (..., K)."""
+def w4_dequant_matmul(x, qt: QTensor, *, interpret: bool = False,
+                      blocks: W4Blocks | None = None):
+    """``x @ dequant(qt)`` with in-kernel nibble unpack; x: (..., K) -> f32.
+
+    The kernel is compiled for the GPU; ``interpret=True`` runs it in the
+    Pallas interpreter instead (CPU tests). ``blocks`` overrides the picker.
+    """
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "w4_dequant_matmul compiles for the GPU only; on "
+            f"{jax.default_backend()!r} pass interpret=True explicitly"
+        )
     K, N = qt.meta.shape
     gs = qt.meta.pack_group
     half_rows = qt.data.shape[0]
     K_pad = 2 * half_rows
     G_pad = K_pad // gs
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
     batch_shape = x.shape[:-1]
     M = int(np.prod(batch_shape)) if batch_shape else 1
+    if blocks is None:
+        blocks = pick_blocks(M, N, gs, G_pad // 2, jnp.dtype(x.dtype).itemsize)
     x2d = x.reshape(M, K)
-    if K_pad != K:
-        x2d = _pad_axis(x2d, 1, K_pad)  # zero rows in w pad region contribute 0
-
-    bm = min(256, max(8, M))
-    x2d = _pad_axis(x2d, 0, bm)
-    n_pairs = G_pad // 2
-    bn, ppb = _pick_blocks(bm, N, gs, n_pairs)
+    x2d = _pad_axis(x2d, 1, K_pad)  # zero rows in the w pad region contribute 0
+    x2d = _pad_axis(x2d, 0, blocks.bm)
 
     scales, zps = _expand_scales(qt, G_pad, N)
-    scales = scales.reshape(G_pad // 2, 2, N)
-    zps = zps.reshape(G_pad // 2, 2, N)
     out = _w4_call(
-        x2d, jnp.asarray(qt.data), scales, zps,
-        gs=gs, signed=qt.meta.qt.is_signed, bm=bm, bn=bn, ppb=ppb,
-        interpret=interpret, out_dtype=jnp.float32,
+        x2d, jnp.asarray(qt.data),
+        scales.reshape(G_pad // 2, 2, N), zps.reshape(G_pad // 2, 2, N),
+        gs=gs, signed=qt.meta.qt.is_signed, blocks=blocks, interpret=interpret,
     )
     return out[:M].reshape(*batch_shape, N)
 
 
-# VMEM charge for the unpack/dequant temporaries, in bytes per (gs, bn)
-# weight element, derived from the kernel body's value chain per group pair:
-#   w int32 (4) + low int32 (4) + high int32 (4)             = 12
-#   low_c / high_c compute-dtype casts (<= f32: 4 + 4)       =  8
-#   alignment/packing margin Mosaic adds in practice         =  4
-#
-# Two allocation regimes, selected by the M-tile:
-# * bm <= _SHARED_TEMP_BM_MAX (decode): Mosaic's liveness analysis reuses the
-#   buffers across the statically-unrolled pairs, so the charge is ONE
-#   pair's PEAK liveness — the three int32 arrays plus one in-flight cast
-#   (12 + 2, rounded to 16). Verified: the shipped decode configs (ppb up to
-#   n_pairs across the 270M/1B/4B zoo) run within this charge and the model
-#   would flag ~1.5x of it as an OOM at the biggest decode tiles.
-# * bm > _SHARED_TEMP_BM_MAX (prefill/perplexity): compiles materialize the
-#   FULL chain per unrolled pair (both casts live into the two dots), so
-#   every pair is charged all 24 B/elem — consistent with the measured 21M
-#   scoped-vmem OOM at bm=256, ppb=5, N=262144 where a shared-temps model
-#   predicted 9M.
-_TEMP_BYTES_SHARED_ELEM = 16
-_TEMP_BYTES_PER_PAIR_ELEM = 24
-_SHARED_TEMP_BM_MAX = 64
-
-
-def _pick_blocks(bm: int, N: int, gs: int, n_pairs: int) -> tuple[int, int]:
-    """Choose (bn, pairs_per_block) minimizing grid-instance count.
-
-    Per-grid-instance overhead (~1.5 us on this runtime) dominates small-K
-    fat-N decode shapes, so prefer the largest lane-tileable bn, then pack as
-    many group pairs per step as the VMEM budget allows. The model charges
-    streamed blocks TWICE (Mosaic double-buffers them) plus the unpack/dequant
-    temporaries (see ``_TEMP_BYTES_PER_PAIR_ELEM``); a 1 MiB headroom below
-    the 16 MiB/core scoped-vmem limit absorbs allocator slack.
-    ``tests/ops/test_w4_blocks.py`` sweeps the model-zoo shapes against this
-    model."""
-    budget = 15 * 1024 * 1024
-
-    def step_bytes(bn, ppb):
-        streamed = (
-            ppb * gs * bn          # packed weight block (u8)
-            + bm * 2 * ppb * gs * 4  # x chunk (f32 at prefill)
-            + 2 * ppb * 2 * bn * 4   # scale + zp blocks
-            + bm * bn * 4          # out block
-        )
-        if bm <= _SHARED_TEMP_BM_MAX:
-            temps = _TEMP_BYTES_SHARED_ELEM * gs * bn
-        else:
-            temps = ppb * _TEMP_BYTES_PER_PAIR_ELEM * gs * bn
-        return 2 * streamed + temps + bm * bn * 4  # + acc scratch
-
-    # All lane-tileable divisors of N, largest first (non-power-of-two shapes
-    # like Gemma-1B's 13824 = 27*512 need e.g. bn=4608 — a fixed power-of-two
-    # list leaves 9x more grid instances on the table).
-    lanes = N // 128
-    cands = sorted(
-        (128 * k for k in range(1, lanes + 1) if lanes % k == 0), reverse=True
-    )
-    best = (128, 1)
-    best_cost = None
-    for bn in cands:
-        for ppb in range(n_pairs, 0, -1):
-            if n_pairs % ppb == 0 and step_bytes(bn, ppb) <= budget:
-                instances = (N // bn) * (n_pairs // ppb)
-                if best_cost is None or instances < best_cost:
-                    best, best_cost = (bn, ppb), instances
-                break  # smaller ppb only increases instances for this bn
-    return best
-
-
-def _w4_predicate(x, qt: QTensor, bias) -> bool:
+def w4_supported(qt: QTensor) -> bool:
+    """Configs the kernel covers: weight-packed QDQ with a group height that
+    splits into power-of-two tiles of >= 16 rows (the tensor-core minimum)
+    and an output width that tiles into blocks of >= 32 columns."""
     if not qt.meta.packed or qt.meta.fmt != QFormat.QDQ:
         return False
-    gs = qt.meta.pack_group
-    K, N = qt.meta.shape
-    if not (gs % 8 == 0 and N % 128 == 0):
-        return False
-    if jax.default_backend() == "tpu":
-        # At prefill-scale M the dot is MXU-compute-bound and the in-kernel
-        # nibble unpack caps the kernel at ~62% of the dense bf16 rate
-        # (BENCH.md roofline table); the jnp fallback (dequantize once, then
-        # a dense dot) is faster there and numerically identical on an f32
-        # stream (under bf16 it rounds the dequantized weights to bf16 — a
-        # documented precision/speed trade, BENCH.md round 2 cont.). The
-        # transient dequant traffic is amortized over M rows. Decode steps —
-        # (B, 1, K) inputs, ANY batch — stay on the fused kernel: inside the
-        # decode scan the dense path would re-materialize full dequantized
-        # weights every step (XLA does not hoist memory-expanding prep out
-        # of while loops).
-        batch_shape = x.shape[:-1]
-        is_decode_step = len(batch_shape) >= 2 and batch_shape[-1] == 1
-        if not is_decode_step and int(np.prod(batch_shape)) >= 128:
-            return False
-        # Compiled lowering needs the x lane-block (2*gs) to be a 128-multiple.
-        return gs % 64 == 0
-    return True
+    if getattr(qt.data, "ndim", 2) != 2:
+        return False  # stacked MoE experts: per-expert slices are dispatched
+    _, N = qt.meta.shape
+    return qt.meta.pack_group % 16 == 0 and N % 32 == 0
 
 
-@register_kernel(_w4_predicate)
-def _w4_kernel_entry(x, qt: QTensor, bias):
+def w4_entry(x, qt: QTensor, bias, *, interpret: bool = False):
+    """One quantized linear site on the kernel: QDQ prologue/epilogue are the
+    oracle's own (``ops/reference.py``)."""
     from onnx_quantize_tpu.ops.reference import qdq_epilogue, qdq_prologue
 
     x = qdq_prologue(x, qt)
-    y = w4_dequant_matmul(x, qt)
+    y = w4_dequant_matmul(x, qt, interpret=interpret)
     return qdq_epilogue(y, qt, bias)

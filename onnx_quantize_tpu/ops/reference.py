@@ -129,8 +129,8 @@ def _bias_value(bias):
 def _qdq_matmul(x, qt: QTensor, bias):
     # Weight-only sites run the dot in the caller's compute dtype (f32 on the
     # oracle/test paths — identity there; bf16 in the engine, where this path
-    # serves prefill-scale M for W4 and a f32 dot would run the MXU at a
-    # fraction of its bf16 rate). Sites with activation QDQ keep the full f32
+    # serves prefill-scale M for W4 and a f32 dot would run the tensor cores
+    # at a fraction of their bf16 rate). Sites with activation QDQ keep the full f32
     # chain: the fake-quantized operand IS the semantics there, and rounding
     # it to bf16 would deviate from the reference's W8A8 numerics.
     weight_only = qt.meta.input_quant.mode == "none"

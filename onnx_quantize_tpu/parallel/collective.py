@@ -2,14 +2,13 @@
 
 The explicit latency-hiding schedules from the scaling-book recipe that
 SURVEY.md §2B lists for the TP build ("all-gather/reduce-scatter overlapped
-with quantized matmuls via shard_map + ppermute pipelining") and VERDICT r2
-flagged as the remaining §2B gap:
+with quantized matmuls via shard_map + ppermute pipelining"):
 
 * :func:`allgather_matmul` — column-parallel matmul whose activations arrive
   M-sharded (sequence-parallel residual stream): instead of materializing
   ``all_gather(x)`` before the dot, each of the ``tp`` pipeline steps runs
   the local Pallas kernel on the row block currently held while the next
-  block rides ICI via ``ppermute``. XLA's scheduler overlaps the permute
+  block rides the interconnect via ``ppermute``. XLA's scheduler overlaps the permute
   with the dot (no data dependency), so the collective hides behind compute.
 * :func:`matmul_reduce_scatter` — row-parallel matmul that produces an
   M-sharded sum instead of a replicated ``psum``: the partial-sum accumulator
@@ -24,7 +23,7 @@ AR ≈ 2 rings).
 
 The reference has no distributed execution at all (SURVEY §2B: its backend
 abstraction is the ORT ExecutionProvider enum); these schedules are the
-TPU-native replacement for what NCCL-based frameworks hand-schedule.
+The JAX counterpart of what NCCL-based frameworks hand-schedule.
 """
 
 from __future__ import annotations

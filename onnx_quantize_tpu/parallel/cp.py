@@ -16,7 +16,7 @@ Two KV modes:
 
 * ``mode="ring"`` — the streaming accumulator above (the Ring Attention
   schedule). Blocks that the causal/sliding-window mask fully hides are
-  skipped with ``lax.cond`` (no MXU work — on sliding-window layers almost
+  skipped with ``lax.cond`` (no matmul work — on sliding-window layers almost
   every remote block is skipped). Matches the dense path to f32-accumulation
   tolerance (online softmax renormalizes; it is not bit-identical).
 * ``mode="gather"`` — one tiled ``all_gather`` of the (small, GQA) K/V heads,
@@ -125,7 +125,7 @@ def _ring_attend(q, k, v, q_pos, *, cfg, is_global: bool, axis: str, size: int):
 
         def update(m, l, acc, k=k, v=v, mask=mask):
             # Same dtype chain as the dense path (gemma3.py:270-275): scores
-            # in q.dtype on the MXU, f32 softmax pieces, probs in v.dtype.
+            # in q.dtype on the tensor cores, f32 softmax pieces, probs in v.dtype.
             s = jnp.einsum("btkgh,bskh->bkgts", qg, k.astype(qg.dtype))
             s = s.astype(jnp.float32) + mask[:, :, None]
             m_new = jnp.maximum(m, jnp.max(s, axis=-1))
@@ -192,7 +192,6 @@ def cp_localize(model, *, axis: str = "seq", size: int, mode: str = "ring"):
     if mode not in ("ring", "gather"):
         raise ValueError(f"unknown cp mode {mode!r}")
     local = type(model)(model.cfg)
-    local.use_flash = False  # the hook intercepts before the flash branch anyway
     for block in local.blocks:
         block.attn.cp_spec = (axis, size, mode)
     return local
@@ -297,7 +296,6 @@ def cp_tp_logits(model, params, ids, mesh: Mesh, *, seq_axis: str = "seq",
     inv = np.argsort(perm)
 
     local, rules = model.tp_localize(tp, axis=model_axis)
-    local.use_flash = False
     for block in local.blocks:
         block.attn.cp_spec = (seq_axis, C, mode)
     lparams = localize_params(params, rules, tp)

@@ -5,7 +5,7 @@ activations replicated across the model axis and psums the combine — ideal
 when the batch fits every chip. At data-parallel scale the tokens themselves
 shard, and the canonical schedule (GShard / Switch / DeepSeek-MoE) moves
 token rows to their experts' devices and back with two ``all_to_all``
-collectives over ICI:
+collectives over the device interconnect:
 
   1. route locally (router weights replicated),
   2. pack each token-choice into a (num_experts, capacity) dispatch buffer,

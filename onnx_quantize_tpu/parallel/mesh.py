@@ -1,11 +1,12 @@
 """Device mesh construction.
 
-The TPU-native replacement for the reference's ExecutionProvider selection
+The JAX replacement for the reference's ExecutionProvider selection
 (``core/_calibration/base.py:12-32``): instead of picking a CPU/CUDA session,
 we lay devices out as a ``jax.sharding.Mesh`` with ``data`` (batch) and
 ``model`` (tensor-parallel) axes. Shardings annotated against this mesh make
-XLA insert the all-gather/reduce-scatter collectives over ICI (SURVEY.md §5,
-"Distributed communication backend").
+XLA insert the all-gather/reduce-scatter collectives (SURVEY.md §5,
+"Distributed communication backend"). The mesh follows the algorithm, not a
+link topology: the GPUs of one host are joined all to all.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ def make_mesh(
     """Build a (data, model) mesh over the available devices.
 
     ``model_parallel`` defaults to the largest power-of-two divisor of the
-    device count up to 8 — a sensible TP width for v5e hosts; override for
-    larger slices.
+    device count up to 8 (one host's GPUs); override it to put the rest on
+    ``data``.
     """
     if devices is None:
         devices = jax.devices()

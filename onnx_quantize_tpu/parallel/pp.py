@@ -2,7 +2,7 @@
 
 The reference has no distributed execution at all (SURVEY.md §2B); the TP
 engine covers the tensor axis. This module adds the PIPELINE axis — the
-standard GPipe fill/drain schedule expressed the TPU-native way (the
+standard GPipe fill/drain schedule expressed the JAX way (the
 scaling-book recipe): devices along a ``pipe`` mesh axis each hold a
 contiguous stage of decoder layers (stage params are STACKED along a leading
 axis and sharded by a plain ``PartitionSpec``, so placement is data layout,
@@ -15,7 +15,7 @@ scoring) over quantized or fp decoders — the phase where pipelining pays
 (deep model, many microbatches amortize the S-1 bubble). Decode-with-cache
 is intentionally served by the TP engine instead: at one token per step the
 pipeline bubble is pure latency and TP's per-layer collectives are strictly
-better on ICI.
+better on the interconnect.
 
 Requirements: ``num_layers % stages == 0`` and each within-stage position
 must have the same static attention flavor across stages (true for all
@@ -142,8 +142,7 @@ def _unstack_local(tree):
 
 
 def pp_logits(model, stage_tree, shared, ids, mesh: Mesh, *,
-              axis: str = "pipe", microbatches: int | None = None,
-              use_flash: bool | str = False):
+              axis: str = "pipe", microbatches: int | None = None):
     """Full-sequence logits via the GPipe fill/drain schedule.
 
     ``ids``: (B, T) with ``B % microbatches == 0``. Numerically equal to
@@ -180,8 +179,7 @@ def pp_logits(model, stage_tree, shared, ids, mesh: Mesh, *,
             for j in range(per_stage_len):
                 block = model.blocks[j]  # static flags match across stages
                 m = mask_global if block.attn.is_global else mask_local
-                x = block(stage_params[f"pos.{j}"], x, positions, m,
-                          use_flash=use_flash)
+                x = block(stage_params[f"pos.{j}"], x, positions, m)
             return x
 
         recv = jnp.zeros((mb, T, cfg.hidden_size), cfg.jnp_dtype)

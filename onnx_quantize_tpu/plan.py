@@ -1,6 +1,6 @@
 """QuantPlan: the serializable per-site quantization state.
 
-TPU-native analogue of the reference's node-metadata bus (SURVEY.md §1): where
+JAX analogue of the reference's node-metadata bus (SURVEY.md §1): where
 the reference stamps ``node.meta["qconfig"]`` / ``meta["input_scale"]`` /
 ``meta["input"]`` on ONNX IR nodes (``pre_passes/__init__.py:17-26``,
 ``calibrate.py:254-307``), we keep a :class:`QuantPlan` keyed by *site name* —

@@ -1,6 +1,6 @@
 """quantize(): the main entry point.
 
-TPU-native analogue of ``/root/reference/src/onnx_quantize/quantize.py:28-80``:
+JAX analogue of the reference's ``src/onnx_quantize/quantize.py:28-80``:
 
     model (Module) + params (pytree) + QConfig
       -> untie shared weights            (≙ DuplicateInitializersPass)

@@ -6,7 +6,7 @@ wikitext-2 joined with double newlines, window ``max_length=2048`` advanced by
 newly-revealed tokens of each window, final ``ppl = exp(total_nll / tokens)``.
 
 The executor is a jit'd JAX forward of a framework model (quantized params run
-through the Pallas kernels on TPU) instead of an ORT session. Token sources:
+through ``ops.quantized_matmul``) instead of an ORT session. Token sources:
 a HF dataset (when network/cache is available), a plain text file + tokenizer,
 or a pre-tokenized ``.npy`` array — the last two keep the tool usable in
 air-gapped environments.

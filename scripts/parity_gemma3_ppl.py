@@ -1,4 +1,4 @@
-"""ONE command for the real-weights wikitext-2 parity gate (VERDICT r2 #3b).
+"""ONE command for the real-weights wikitext-2 parity gate.
 
 Reproduces the reference's headline accuracy table
 (``/root/reference/examples/gemma3/README.md:27-33``) on google/gemma-3-270m:
@@ -19,12 +19,10 @@ wikitext-2 HF dataset when a network/cache is available. The AWQ arm needs
 calibration text; it reuses the evaluation stream's first windows (the
 reference calibrates on wikitext train — note the difference in the output).
 
-Sandbox status (round 3, 2026-08-18): no gemma-3-270m checkpoint is reachable
-(`find / -name '*.safetensors'` is empty outside the repo; no HF cache; zero
-egress), so this command has not produced numbers yet. Everything up to the
-checkpoint is verified: the importer reproduces HF logits bit-for-argmax
-(tests/models/test_import_hf.py::test_import_reproduces_hf_logits) and the
-TPU path reproduces CPU ppl pins within 0.15% (scripts/tpu_check_ppl.py).
+No gemma-3-270m checkpoint ships with the repo, so this command has not
+produced numbers yet. Everything up to the checkpoint is verified: the
+importer reproduces HF logits bit-for-argmax
+(tests/models/test_import_hf.py::test_import_reproduces_hf_logits).
 """
 
 import argparse

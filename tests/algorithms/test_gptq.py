@@ -57,8 +57,8 @@ def test_gptq_shapes_dtypes_ranges(rng, block_size, strategy, gs, actorder):
 @pytest.mark.parametrize("K, gs", [(24, 8), (20, 8)])  # aligned and ragged tail
 def test_gptq_jit_matches_host_sweep(rng, mse, actorder, K, gs):
     """The single-program lax sweep (incl. in-jit mse search, ragged-group
-    zero padding, group-aligned actorder) must agree with the numpy oracle
-    (VERDICT round-1 item #6: no silent host fallback remains)."""
+    zero padding, group-aligned actorder) must agree with the numpy oracle:
+    no silent host fallback remains."""
     w, x = _weights_and_inputs(rng, K=K, N=8)
     q_jit, s_jit, z_jit = gptq_quantize(
         w, x, quant_type=QuantType.QInt8, strategy=QuantizationStrategy.GROUP,

@@ -242,7 +242,8 @@ class TestCalibrationParams:
         assert cp.backend == Backend.CPU
 
     def test_backend_aliases(self):
-        assert CalibrationParams(backend="tpu").backend == Backend.TPU
+        assert CalibrationParams(backend="gpu").backend == Backend.GPU
+        assert CalibrationParams(backend="default").backend == Backend.DEFAULT
         assert CalibrationParams(backend="cpu").backend == Backend.CPU
         with pytest.raises(ValueError, match="Invalid backend"):
             CalibrationParams(backend="cuda")

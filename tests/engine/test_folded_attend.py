@@ -53,7 +53,7 @@ class TestFoldedAttend:
         mask = jnp.zeros((B, 1, 1, S), jnp.float32)
 
         attn = model.blocks[0].attn
-        kv = QuantizedKV(k_q, v_q, k_s, v_s, use_kernel=False)
+        kv = QuantizedKV(k_q, v_q, k_s, v_s)
         got = attn(
             qparams["layers.0"]["attn"], q,
             positions=jnp.full((B, 1), S - 1, jnp.int32), mask=mask,

@@ -1,6 +1,6 @@
 """Perplexity through the engine's quantized-KV decode path.
 
-VERDICT r4 missing-item #2 / SURVEY §7 hard-part (5): the window-scoring
+SURVEY §7 hard-part (5): the window-scoring
 perplexity tool (matching ``/root/reference/tools/perplexity.py:25-83``)
 never touches the KV cache, so KV-quantization error was previously only
 bounded by a 15%-of-max logits check. ``InferenceEngine.score_nll`` closes
@@ -22,8 +22,6 @@ Three layers of evidence, all on the deterministic structured model
 3. Monotone logits distortion: mean |logits_kvq − logits_fp| along the
    teacher-forced trajectory must grow int8 → int4 (it measures cache error
    directly, independent of the model's predictive quality).
-
-On-chip confirmation at 1B/S=2048: ``scripts/tpu_check_kv_ppl.py``.
 """
 
 import numpy as np

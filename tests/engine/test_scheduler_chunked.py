@@ -151,7 +151,7 @@ def _run_pipelined(model, params, chunk, pipeline, prompts, eos, max_seq=48,
 @pytest.mark.parametrize("narrow", [False, True])
 def test_planned_pipelined_admission_matches_per_step(quantized_model,
                                                       pipeline, narrow):
-    """Planned mid-pipeline admissions (VERDICT r4 #1): slots are refilled
+    """Planned mid-pipeline admissions: slots are refilled
     inside a pipelined group the moment their budget guarantees completion.
     9 requests with short budgets through 2 slots force multiple planned
     handoffs per group; outputs must equal the per-step scheduler exactly."""

@@ -1,4 +1,4 @@
-"""Scheduler mid-decode interleaving (VERDICT r1 weak #6): requests admitted
+"""Scheduler mid-decode interleaving: requests admitted
 into slots freed while other slots are still decoding must not disturb the
 in-flight sequences, and slot-local prefill must leave sibling KV intact."""
 

@@ -1,10 +1,10 @@
 """Serve-mode (chunk > 1) rounds: ONE device program per round with per-slot
-sampling, EOS, and budgets (VERDICT r2 items #1/#2).
+sampling, EOS, and budgets.
 
 The chunked scheduler must handle heterogeneous SamplingParams and
 per-request EOS inside a single program, with greedy rows bit-equal to the
 per-step reference loop, and enforce submit-time validation instead of
-silently truncating (ADVICE r2)."""
+silently truncating."""
 
 import numpy as np
 import pytest
@@ -117,9 +117,8 @@ def _run(model, params, chunk, reqs, max_seq=48, pipeline=1, max_batch=2):
 
 def test_mixed_eos_matches_per_step(quantized_model):
     """Different EOS ids per request (one with none) — greedy, so chunked
-    serve mode must match the per-step loop token-for-token. This is the
-    ADVICE r2 medium finding: the old chunked path applied the first slot's
-    EOS to the whole batch."""
+    serve mode must match the per-step loop token-for-token. Regression: the
+    old chunked path applied the first slot's EOS to the whole batch."""
     model, qparams = quantized_model
     # Discover what the model emits for each prompt to build effective EOS.
     probe = _run(model, qparams, 1, [

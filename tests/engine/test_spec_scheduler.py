@@ -1,6 +1,6 @@
 """Speculative serving: token-exactness vs the non-speculative scheduler.
 
-VERDICT r4 #3: per-slot draft windows inside serve rounds (acceptance, EOS,
+Per-slot draft windows inside serve rounds (acceptance, EOS,
 budgets per slot), pinned token-for-token against
 ``ContinuousBatchingScheduler`` on the same submissions — for a perfect
 draft, a quantized draft, and an adversarial draft (speculation may only

@@ -55,9 +55,9 @@ PINS = [
         input_activations=oqt.QActivationArgs(dtype="uint8", is_static=True),
         preprocessors=[oqt.SmoothQuantConfig()],
         calibration_data=calib), 1258.890),
-    # Full-int8 QLinear execution (s8xs8 MXU + requant epilogues) — the
+    # Full-int8 QLinear execution (s8xs8 integer matmul + requant epilogues) — the
     # reference's QLinearMatMul mode; pins the TRUE-int compute path, not
-    # the QDQ fake-quant simulation of it (VERDICT r2 #6).
+    # the QDQ fake-quant simulation of it.
     ("qlinear_w8a8_static", lambda calib: dict(
         weights=oqt.QWeightArgs(dtype="int8", symmetric=True),
         input_activations=oqt.QActivationArgs(dtype="uint8", is_static=True),

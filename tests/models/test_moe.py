@@ -248,28 +248,22 @@ class TestQuantizeAndStack:
                 err_msg=f"ragged path diverges for {layout.__name__}",
             )
 
-    def test_ragged_auto_gates_fused_source_by_m(self):
-        """Auto-mode ragged from the FUSED layout requires bulk-prefill M:
-        the in-program dequant of the whole concatenated MLP only amortizes
-        there (serving admissions measured +8.4% on the dense-masked path —
-        BENCH.md round 5, scripts/tpu_probe_moe_serve.py). Stacked sources
-        keep the M>=128 phase boundary."""
+    @pytest.mark.parametrize("mode, want", [
+        ("auto", False), (True, True), (False, False),
+    ])
+    def test_ragged_prefill_rule(self, mode, want):
+        """Ragged prefill is one backend-neutral rule: only an explicit
+        ``use_ragged_prefill=True`` takes it; "auto" keeps dense-masked."""
         cfg, model, params = _model()
         mlp = model.blocks[0].mlp
         layout = {"gate_up": {"w": params["layers.0"]["mlp"]["experts.0"][
             "gate_proj"]["w"]}}  # fp site dict: _ragged_compatible trivially
-        import unittest.mock as mock
-
-        with mock.patch("jax.default_backend", return_value="tpu"):
-            assert mlp._ragged_ok(layout, 2048, fused_source=False)
-            assert not mlp._ragged_ok(layout, 2048, fused_source=True)
-            assert mlp._ragged_ok(layout, 8192, fused_source=True)
-            # Explicit True overrides the gate either way.
-            mlp.use_ragged_prefill = True
-            try:
-                assert mlp._ragged_ok(layout, 64, fused_source=True)
-            finally:
-                mlp.use_ragged_prefill = "auto"
+        mlp.use_ragged_prefill = mode
+        try:
+            assert mlp._ragged_ok(layout) is want
+            assert mlp._ragged_ok(None) is False
+        finally:
+            mlp.use_ragged_prefill = "auto"
 
     def test_ragged_falls_back_on_act_quant(self, rng):
         """The ragged path runs plain fp grouped matmuls — configs with

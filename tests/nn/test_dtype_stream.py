@@ -1,9 +1,8 @@
 """The activation stream must stay in the caller's dtype through linear sites.
 
-Round-2 regression guard: linear sites accumulate in f32 on the MXU, but
-returning the raw f32 accumulator promoted the entire residual stream to f32
-after the first add — measured as 7x slower int8-KV attends at the Gemma-4B
-shape and f32 operands into every kernel (BENCH.md round 2 cont.). These
+Regression guard: linear sites accumulate in f32, but returning the raw f32
+accumulator promoted the entire residual stream to f32 after the first add —
+f32 int8-KV attends and f32 operands into every matmul. These
 tests pin the cast-back contract for the plain, quantized, and fused paths.
 """
 

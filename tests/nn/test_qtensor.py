@@ -145,7 +145,7 @@ def test_native_minmax_rows_matches_numpy():
 # ------------------------------------------------------------- scale layout
 
 def test_group_scale_layout_transposed():
-    """Algorithm layout (N * n_groups, 1) -> TPU layout (n_groups, N)."""
+    """Algorithm layout (N * n_groups, 1) -> kernel layout (n_groups, N)."""
     K, N, gs = 64, 8, 16
     n_groups = K // gs
     rng = np.random.default_rng(4)

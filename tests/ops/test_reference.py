@@ -73,7 +73,7 @@ def test_static_input_qdq_bf16_stream_keeps_f32_chain(rng):
     """On a bf16 activation stream, sites WITH activation QDQ must still run
     the reference f32 chain (the fake-quantized operand IS the semantics);
     only weight-only sites take the caller's-dtype fast dot. Guards the
-    weight_only gate in ``_qdq_matmul`` (ADVICE r2)."""
+    weight_only gate in ``_qdq_matmul``."""
     import jax.numpy as jnp
 
     in_spec = ActQuantSpec(mode="static", dtype="uint8")

@@ -1,22 +1,25 @@
-"""Shape sweep for the W4 kernel's block picker VMEM model (VERDICT r2 #7).
+"""Shape sweep for the W4 kernel's launch-geometry picker.
 
-``matmul_w4._pick_blocks`` chooses (bn, pairs_per_block) under a scoped-vmem
-budget model. These tests pin the model against the full model-zoo shape
-family (Gemma-3 270M/1B/4B sites x group sizes x decode/prefill M-tiles) so
-the next shape family cannot silently mis-budget:
+``matmul_w4.pick_blocks`` chooses (bm, bn, bk, split_k, stages) for the
+Triton route. These tests pin it against the full model-zoo shape family
+(Gemma-3 270M/1B/4B sites x group sizes x decode/prefill M) so the next shape
+family cannot silently mis-size a block:
 
-* every chosen config's predicted bytes stay under the 16 MiB/core limit;
-* the decode choices for the headline shapes are pinned (a picker edit that
-  shrinks bn or ppb on these shapes is a measured perf regression — see
-  BENCH.md round-2 grid-instance analysis — and must be re-benched on-chip).
+* every block fits Hopper's 227 KB of shared memory per block;
+* block sizes are powers of two, with >= 16 rows for the tensor cores;
+* the grid covers all of N and all group pairs exactly once;
+* at decode, the grid fills the card's 132 SMs wherever the shape allows.
 """
 
 import pytest
 
 from onnx_quantize_tpu.models.gemma3 import GEMMA3_1B, GEMMA3_4B, GEMMA3_270M
-from onnx_quantize_tpu.ops.kernels.matmul_w4 import _pick_blocks
-
-VMEM_LIMIT = 16 * 1024 * 1024
+from onnx_quantize_tpu.ops.kernels.matmul_w4 import (
+    NUM_SMS,
+    SMEM_LIMIT,
+    pick_blocks,
+    smem_bytes,
+)
 
 
 def zoo_shapes():
@@ -38,60 +41,37 @@ def zoo_shapes():
     return out
 
 
-def model_bytes(bm, bn, ppb, gs):
-    """The picker's own cost model, re-stated independently so a picker edit
-    that loosens the budget without touching this test fails loudly."""
-    from onnx_quantize_tpu.ops.kernels.matmul_w4 import (
-        _SHARED_TEMP_BM_MAX,
-        _TEMP_BYTES_PER_PAIR_ELEM,
-        _TEMP_BYTES_SHARED_ELEM,
-    )
+def _pow2(n):
+    return n > 0 and n & (n - 1) == 0
 
-    streamed = (
-        ppb * gs * bn
-        + bm * 2 * ppb * gs * 4
-        + 2 * ppb * 2 * bn * 4
-        + bm * bn * 4
-    )
-    per_elem = (
-        _TEMP_BYTES_SHARED_ELEM
-        if bm <= _SHARED_TEMP_BM_MAX
-        else ppb * _TEMP_BYTES_PER_PAIR_ELEM
-    )
-    return 2 * streamed + per_elem * gs * bn + bm * bn * 4
+
+def _n_pairs(K, gs):
+    return -(-K // (2 * gs))
 
 
 @pytest.mark.parametrize("label,K,N", zoo_shapes())
 @pytest.mark.parametrize("gs", [64, 128])
-@pytest.mark.parametrize("bm", [8, 32, 64, 256])
-def test_zoo_choices_fit_vmem(label, K, N, gs, bm):
-    if N % 128:
-        pytest.skip("lane-untileable N handled by the jnp fallback")
-    K_pad = -(-K // (2 * gs)) * (2 * gs)
-    n_pairs = K_pad // (2 * gs)
-    bn, ppb = _pick_blocks(bm, N, gs, n_pairs)
-    assert N % bn == 0 and n_pairs % ppb == 0
-    assert model_bytes(bm, bn, ppb, gs) <= VMEM_LIMIT
+@pytest.mark.parametrize("M", [8, 32, 64, 256])
+def test_zoo_choices_fit_smem(label, K, N, gs, M):
+    n_pairs = _n_pairs(K, gs)
+    for itemsize in (2, 4):  # bf16 and f32 activations
+        b = pick_blocks(M, N, gs, n_pairs, itemsize)
+        assert smem_bytes(b, itemsize) <= SMEM_LIMIT
+        assert all(_pow2(v) for v in (b.bm, b.bn, b.bk))
+        assert b.bm >= 16 and b.bk >= 16 and b.bn >= 32
+        assert gs % b.bk == 0
+        assert N % b.bn == 0  # the N blocks tile all of N
+        assert n_pairs % b.split_k == 0  # each pair in exactly one split
+        assert b.num_stages >= 2
 
 
-# Decode picks for the perf-critical headline shapes (bm=32). These exact
-# configs ran the round-2/3 on-chip headlines; a picker change that alters
-# them must be re-measured before shipping.
-PINNED_DECODE = {
-    # (K, N, gs) -> (bn, ppb)
-    (640, 262144, 64): (4096, 5),    # 270M int8-era W4 lm_head alt
-    (640, 262144, 128): (4096, 3),   # 270M lm_head g128
-    (640, 4096, 128): (4096, 3),     # 270M gate_up
-    (1152, 13824, 128): (3456, 5),   # 1B gate_up
-    (1152, 262144, 128): (2048, 5),  # 1B lm_head
-    (2560, 262144, 64): (4096, 10),  # 4B lm_head g64 (bench recipe)
-    (2560, 20480, 128): (2560, 10),  # 4B gate_up
-}
-
-
-@pytest.mark.parametrize("key,expect", sorted(PINNED_DECODE.items()))
-def test_pinned_decode_choices(key, expect):
-    K, N, gs = key
-    K_pad = -(-K // (2 * gs)) * (2 * gs)
-    n_pairs = K_pad // (2 * gs)
-    assert _pick_blocks(32, N, gs, n_pairs) == expect
+@pytest.mark.parametrize("label,K,N", zoo_shapes())
+def test_decode_grid_fills_the_card(label, K, N):
+    """At decode (M = 32, bf16) the grid has at least one block per SM
+    unless the shape has no more to give (every group pair in its own
+    split)."""
+    gs = 128
+    n_pairs = _n_pairs(K, gs)
+    b = pick_blocks(32, N, gs, n_pairs, 2)
+    blocks = (N // b.bn) * b.split_k
+    assert blocks >= NUM_SMS or b.split_k == n_pairs

@@ -6,8 +6,13 @@ from onnx_quantize_tpu.core.dtypes import QuantType
 from onnx_quantize_tpu.core.enums import QFormat, QuantizationStrategy
 from onnx_quantize_tpu.nn.qtensor import ActQuantSpec, make_qtensor
 from onnx_quantize_tpu.ops import convert_to_w4a8
-from onnx_quantize_tpu.ops.kernels.matmul_w4a8 import w4a8_matmul
-from onnx_quantize_tpu.ops.reference import quantized_matmul_jnp
+from onnx_quantize_tpu.ops.dispatch import select_path
+from onnx_quantize_tpu.ops.reference import (
+    dequantize_weight,
+    dynamic_quantize_params,
+    quantized_matmul_jnp,
+    static_fake_quant,
+)
 
 
 def _w4a8_qt(rng, K=64, N=128, gs=16, sym=False, qt_type=QuantType.QUInt4):
@@ -22,25 +27,42 @@ def _w4a8_qt(rng, K=64, N=128, gs=16, sym=False, qt_type=QuantType.QUInt4):
 
 @pytest.mark.parametrize("qt_type", [QuantType.QUInt4, QuantType.QInt4])
 @pytest.mark.parametrize("K, gs", [(64, 16), (96, 32)])
-def test_w4a8_kernel_matches_jnp_semantics(rng, qt_type, K, gs):
+def test_w4a8_matches_fake_quant_semantics(rng, qt_type, K, gs):
+    """The A8 oracle: dynamic int8 symmetric fake-quant of x per tensor, then
+    an fp matmul on the dequantized weights."""
     w, qt = _w4a8_qt(rng, K=K, gs=gs, qt_type=qt_type)
     x = rng.standard_normal((6, K)).astype(np.float32)
-    y_kernel = np.asarray(w4a8_matmul(x, qt, interpret=True))
-    # jnp semantics: dynamic int8 sym fake-quant of x, then fp matmul on
-    # dequantized weights — the int-dot kernel must agree tightly.
-    y_jnp = np.asarray(quantized_matmul_jnp(x, qt))
-    np.testing.assert_allclose(y_kernel, y_jnp, rtol=2e-4, atol=2e-4)
+    y = np.asarray(quantized_matmul_jnp(x, qt))
+    scale, zp = dynamic_quantize_params(x, qt.meta.input_quant)
+    x_fq = np.asarray(static_fake_quant(x, scale, zp, qt.meta.input_quant))
+    assert len(np.unique(x_fq)) <= 255  # x really went through int8
+    np.testing.assert_allclose(y, x_fq @ np.asarray(dequantize_weight(qt)),
+                               rtol=2e-4, atol=2e-4)
     # and loosely with the fp original (W4 + A8 quantization error)
-    np.testing.assert_allclose(y_kernel, x @ w, atol=0.35)
+    np.testing.assert_allclose(y, x @ w, atol=0.35)
 
 
-def test_dispatch_prefers_w4a8_kernel(rng):
-    from onnx_quantize_tpu.ops.kernels import select_kernel
-    from onnx_quantize_tpu.ops.kernels.matmul_w4a8 import _w4a8_kernel_entry
+@pytest.mark.parametrize("backend, impl, want", [
+    ("gpu", "auto", "w4"), ("gpu", "pallas", "w4"), ("cpu", "auto", "jnp"),
+])
+def test_dispatch_of_a8_sites(rng, backend, impl, want):
+    """A W4A8 site takes the W4 kernel on the GPU: the oracle's own prologue
+    fake-quantizes x to int8 first, so the kernel serves only the weight
+    side. Off the GPU it runs the oracle."""
+    _, qt = _w4a8_qt(rng)
+    assert select_path((4, 1), qt, backend=backend, impl=impl) == want
 
-    w, qt = _w4a8_qt(rng)
-    kernel = select_kernel(np.zeros((4, 64), np.float32), qt, None)
-    assert kernel is _w4a8_kernel_entry
+
+def test_w4a8_site_through_the_kernel(rng):
+    """The A8 prologue + interpreted kernel equals the A8 oracle."""
+    from onnx_quantize_tpu.ops.kernels.matmul_w4 import w4_entry
+
+    _, qt = _w4a8_qt(rng, K=96, gs=32)
+    x = rng.standard_normal((5, 96)).astype(np.float32)
+    np.testing.assert_allclose(
+        np.asarray(w4_entry(x, qt, None, interpret=True)),
+        np.asarray(quantized_matmul_jnp(x, qt)), rtol=1e-4, atol=1e-4,
+    )
 
 
 def test_convert_to_w4a8(rng):

@@ -5,8 +5,13 @@ from onnx_quantize_tpu.algorithms.rtn import rtn_quantize
 from onnx_quantize_tpu.core.dtypes import QuantType
 from onnx_quantize_tpu.core.enums import QFormat, QuantizationStrategy
 from onnx_quantize_tpu.nn.qtensor import ActQuantSpec, make_qtensor
-from onnx_quantize_tpu.ops.kernels.matmul_w8a8 import w8a8_matmul
-from onnx_quantize_tpu.ops.reference import quantized_matmul_jnp
+from onnx_quantize_tpu.ops.dispatch import select_path
+from onnx_quantize_tpu.ops.reference import (
+    dequantize_weight,
+    dynamic_quantize_params,
+    quantized_matmul_jnp,
+    static_fake_quant,
+)
 
 
 def _w8a8_qt(rng, K=64, N=128, qt_type=QuantType.QInt8,
@@ -23,23 +28,26 @@ def _w8a8_qt(rng, K=64, N=128, qt_type=QuantType.QInt8,
 @pytest.mark.parametrize("qt_type", [QuantType.QInt8, QuantType.QUInt8])
 @pytest.mark.parametrize("strategy, gs, K", [
     (QuantizationStrategy.CHANNEL, -1, 64),
-    (QuantizationStrategy.CHANNEL, -1, 100),  # K padding
+    (QuantizationStrategy.CHANNEL, -1, 100),
     (QuantizationStrategy.GROUP, 16, 64),
 ])
-def test_w8a8_matches_jnp_semantics(rng, qt_type, strategy, gs, K):
+def test_w8a8_matches_fake_quant_semantics(rng, qt_type, strategy, gs, K):
+    """The A8 oracle on 8-bit weights: int8 fake-quant of x, fp matmul on the
+    dequantized weights, close to the fp original."""
     w, qt = _w8a8_qt(rng, K=K, qt_type=qt_type, strategy=strategy, gs=gs)
     x = rng.standard_normal((6, K)).astype(np.float32)
-    y_kernel = np.asarray(w8a8_matmul(x, qt, interpret=True))
-    y_jnp = np.asarray(quantized_matmul_jnp(x, qt))
-    np.testing.assert_allclose(y_kernel, y_jnp, rtol=2e-4, atol=2e-4)
+    y = np.asarray(quantized_matmul_jnp(x, qt))
+    scale, zp = dynamic_quantize_params(x, qt.meta.input_quant)
+    x_fq = np.asarray(static_fake_quant(x, scale, zp, qt.meta.input_quant))
+    np.testing.assert_allclose(y, x_fq @ np.asarray(dequantize_weight(qt)),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(y, x @ w, atol=0.1)
 
 
-def test_dispatch_prefers_w8a8(rng):
-    from onnx_quantize_tpu.ops.kernels import select_kernel
-    from onnx_quantize_tpu.ops.kernels.matmul_w8a8 import _w8a8_kernel_entry
-
+def test_dispatch_keeps_w8a8_on_the_oracle(rng):
+    """The folded 8-bit path is weight-only: A8 sites stay on the oracle."""
     _, qt = _w8a8_qt(rng)
-    assert select_kernel(np.zeros((4, 64), np.float32), qt, None) is _w8a8_kernel_entry
+    assert select_path((4, 1), qt, backend="gpu", impl="auto") == "jnp"
 
 
 def test_convert_covers_symmetric_int8(rng):

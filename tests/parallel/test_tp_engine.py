@@ -1,5 +1,5 @@
 """Engine tensor-parallel path: whole-model shard_map over a (data, model)
-mesh must reproduce the single-device engine (VERDICT round-1 item #1)."""
+mesh must reproduce the single-device engine."""
 
 import numpy as np
 import pytest
@@ -55,17 +55,17 @@ def test_tp_engine_matches_single_device():
 
 
 def test_tp_engine_runs_pallas_kernels():
-    """The TP engine must execute the production Pallas kernels per-shard
-    (interpret mode on CPU): local N=128 satisfies the kernel predicates for
-    every projection. Sharded output must still match the jnp single-device
-    oracle."""
+    """The TP engine must execute the W4 kernel per shard (in the Pallas
+    interpreter, asked for explicitly on the CPU): local N=128 is covered by
+    the kernel for every projection. Sharded output must still match the jnp
+    single-device oracle."""
     model, qparams = _quantized_tiny(
         hidden=128, inter=512, heads=8, head_dim=64, vocab=512, gs=16,
     )
     mesh = make_mesh(model_parallel=4)
 
     logits_1, first_1, gen_1, _ = _run_engine(model, qparams, steps=2)
-    ops.set_impl("pallas")
+    ops.set_impl("pallas", interpret=True)
     try:
         logits_tp, first_tp, gen_tp, _ = _run_engine(model, qparams, mesh=mesh, steps=2)
     finally:
@@ -83,7 +83,7 @@ def test_tp_engine_runs_pallas_kernels():
     (2, 4),           # GQA replicate-slice: kv < tp, tp % kv == 0
 ])
 def test_tp_engine_gqa_grid(kv_heads, tp):
-    """GQA KV-head handling across the kv x tp grid (VERDICT r2 item #4):
+    """GQA KV-head handling across the kv x tp grid:
     sharded, sliced, and replicated placements must all reproduce the
     single-device engine."""
     model, qparams = _quantized_tiny(kv_heads=kv_heads)

@@ -59,13 +59,14 @@ def test_row_parallel_matches_single_device(rng, mesh):
 
 
 def test_column_parallel_with_pallas_kernels(rng, mesh):
-    """The Pallas kernel (interpret mode on CPU) must compose with shard_map:
-    per-device local shapes hit the kernel, collectives stay outside."""
+    """The W4 kernel (Pallas interpreter, asked for explicitly on the CPU)
+    must compose with shard_map: per-device local shapes hit the kernel,
+    collectives stay outside."""
     from onnx_quantize_tpu import ops
 
-    qt = _qt(rng, K=64, N=512, gs=16)  # 512/4 = 128 per shard: lane-tileable
+    qt = _qt(rng, K=64, N=512, gs=16)  # 512/4 = 128 per shard: kernel-tileable
     x = jnp.asarray(rng.standard_normal((8, 64)).astype(np.float32))
-    ops.set_impl("pallas")
+    ops.set_impl("pallas", interpret=True)
     try:
         y_tp = np.asarray(column_parallel_matmul(x, qt, mesh))
     finally:

@@ -1,6 +1,6 @@
 """Online rotations (QuaRot R2/R3/R4): exactness, KV recovery, composition.
 
-VERDICT r4 #5. R2 folds the V head-space rotation (weight-space; cached V
+R2 folds the V head-space rotation (weight-space; cached V
 rotated), R3 applies a per-head transform to q/k ONLINE post-RoPE (cached K
 rotated; RoPE prevents folding), R4 applies a blockwise Hadamard on the
 down_proj input ONLINE with Hᵀ folded into the weight.

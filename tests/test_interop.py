@@ -1,4 +1,4 @@
-"""Reference MatMulNBits artifact interop (VERDICT r2 "missing #4").
+"""Reference MatMulNBits artifact interop.
 
 The exported blobs must match the layout the reference emits
 (``/root/reference/src/onnx_quantize/qrules/_common.py:65-123``): (N, K)

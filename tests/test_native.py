@@ -57,7 +57,7 @@ def test_native_minmax_rows(rng, lib):
 
 
 def test_native_pack_beats_numpy_at_scale(lib):
-    """Timing sanity for the vectorized lib (VERDICT r1 weak #8): at the
+    """Timing sanity for the vectorized lib: at the
     ~4M-element routing threshold the native pack must not lose to numpy.
     Generous 1.5x slack keeps this stable on loaded CI machines; the typical
     ratio is ~3-10x in native's favor with OpenMP + simd."""
@@ -81,3 +81,18 @@ def test_native_pack_beats_numpy_at_scale(lib):
     assert t_native < t_numpy * 1.5, (
         f"native pack {t_native*1e3:.1f} ms vs numpy {t_numpy*1e3:.1f} ms"
     )
+
+
+def test_needs_build_when_missing_or_stale(tmp_path):
+    import os
+
+    src = tmp_path / "oqt_native.cpp"
+    lib = tmp_path / "liboqt_native.so"
+    src.write_text("// source")
+    assert native.needs_build(lib, src)  # missing
+    lib.write_bytes(b"")
+    os.utime(lib, (1_000, 1_000))
+    os.utime(src, (2_000, 2_000))
+    assert native.needs_build(lib, src)  # older than its source
+    os.utime(lib, (3_000, 3_000))
+    assert not native.needs_build(lib, src)

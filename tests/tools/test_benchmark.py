@@ -1,8 +1,9 @@
 """Benchmark harness: structure + roofline accounting (CPU, tiny shapes).
 
 Timing on CPU is meaningless as a perf number; these tests pin the harness's
-CONTRACT — the in-jit chained loop runs the real kernel (interpret mode), the
-report carries the roofline fields, and the ceiling math is consistent.
+CONTRACT — the in-jit chained loop runs the measured function, the report
+carries the roofline fields, the ceiling math is consistent, and a device
+without published peaks is an error.
 """
 
 import numpy as np
@@ -13,7 +14,14 @@ from onnx_quantize_tpu.algorithms.rtn import rtn_quantize
 from onnx_quantize_tpu.core.dtypes import QuantType
 from onnx_quantize_tpu.core.enums import QuantizationStrategy
 from onnx_quantize_tpu.nn.qtensor import make_qtensor
-from onnx_quantize_tpu.tools.benchmark import V5E, bench_fn, bench_quantized_matmul
+import pytest
+
+from onnx_quantize_tpu.tools.benchmark import (
+    H100_SXM,
+    bench_fn,
+    bench_quantized_matmul,
+    chip_spec,
+)
 
 
 def _qt(rng, K=64, N=128, gs=16):
@@ -34,9 +42,9 @@ def test_bench_fn_measures_positive_slope(rng):
 
 def test_bench_quantized_matmul_report(rng):
     qt = _qt(rng)
-    report = bench_quantized_matmul(qt, M=8, iters=8, impl="jnp")
+    report = bench_quantized_matmul(qt, M=8, iters=8, impl="jnp", chip=H100_SXM)
     assert report["shape"] == "8x64x128"
-    assert report["chip"] == "v5e"
+    assert report["chip"] == "H100 SXM"
     assert report["bound"] in ("compute", "memory")
     assert report["time_us"] > 0 and report["tflops"] > 0 and report["hbm_gbps"] > 0
     # Roofline consistency: pct = ceiling/sec, ceiling from the SLOWER of the
@@ -44,8 +52,21 @@ def test_bench_quantized_matmul_report(rng):
     flops = 2 * 8 * 64 * 128
     weight_bytes = np.asarray(qt.data).nbytes + np.asarray(qt.scale).nbytes
     bytes_accessed = weight_bytes + 8 * 64 * 2 + 8 * 128 * 4
-    ceiling = max(flops / (V5E.peak_bf16_tflops * 1e12),
-                  bytes_accessed / (V5E.hbm_gbps * 1e9))
+    ceiling = max(flops / (H100_SXM.peak_bf16_tflops * 1e12),
+                  bytes_accessed / (H100_SXM.hbm_gbps * 1e9))
     sec = report["time_us"] / 1e6
     assert abs(report["pct_roofline"] - 100 * ceiling / sec) < 0.5
     assert 0 < report["pct_roofline"] <= 100
+
+
+def test_chip_spec_known_and_unknown():
+    assert chip_spec("NVIDIA H100 80GB HBM3") is H100_SXM
+    with pytest.raises(ValueError, match="no published peaks"):
+        chip_spec("cpu")
+
+
+def test_bench_defaults_to_device_peaks(rng):
+    """Without ``chip`` the peaks come from the device that runs the bench —
+    here the CPU, which has none: an error, not a default."""
+    with pytest.raises(ValueError, match="no published peaks"):
+        bench_quantized_matmul(_qt(rng), M=8, iters=8, impl="jnp")
